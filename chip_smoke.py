@@ -3,13 +3,17 @@
     python3 chip_smoke.py [--out results.json]
 
 Builds the hand-written CUDA kernel (roboticsplayroompybullet_torch/csrc/
-fused_step.cu) from this checkout, holds each of its three entry points
+fused_step.cu) from this checkout (and fails if an entry point's stack
+frame is over 1 KB or anything spills), holds each of its three entry points
 (sim, step, rollout) to the plain PyTorch lane twin on the card and to the
 JAX package's outputs (committed fixtures, tests/torch_fixtures/), then
 drives the port's main path — make_fused_rollout_whole(m, 40) on
 UR5PlayAbsRPY1Obj-v0 at B=4096, plus the env step and the sim kernel —
 holds its rollout to the plain twin at that same shape, and times it with
-CUDA events. Every phase prints its numbers; any failure raises and the
+CUDA events: each kernel beside its plain version and its bound (FLOPs
+counted from the source over 67 TFLOP/s, bytes over 3.35 TB/s), the batch
+scaling, and the rollout's split into Jacobi sweeps / IK / the rest.
+Every phase prints its numbers; any failure raises and the
 script exits non-zero without a result line. About 10 minutes on one
 H100, most of it the plain twin's eager steps (the H=40 check takes 40).
 
@@ -24,10 +28,14 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
+if __name__ == "__main__" and not os.path.isdir(
+        os.path.join(ROOT, "roboticsplayroompybullet_torch")):
+    sys.exit("chip_smoke.py runs from a checkout of the repo: "
+             "roboticsplayroompybullet_torch/ is not beside it")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 FLAGSHIP = "UR5PlayAbsRPY1Obj-v0"
 SOURCE = "roboticsplayroompybullet_torch/csrc/fused_step.cu"
 # the pl.pallas_call site of each TPU kernel the CUDA entry points replace
@@ -40,7 +48,18 @@ POS_MAX = 1e-4                      # position-like fields: max |Δ|
 VEL_P99, VEL_MAX = 1e-3, 5e-2       # velocity fields: p99 and max |Δ|
 ROLLOUT_MAX = 0.05                  # rollout ags max (test_fused.py:206-211)
 MAX_FLIPS = 4                       # envs a step may leave the bounds above
+MAX_STACK = 1024                    # bytes of stack frame a kernel may use
+PEAK_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12                # H100 SXM HBM3 bytes/s
 RESULTS = {}
+
+# FLOPs of the kernel body's primitives, counted from csrc/fused_step.cu:
+# an add, multiply, division, square root, sin or cos counts 1 (so an FMA
+# counts 2); compares, selects, min/max and clips count 0.
+QROT, QMUL, QNORM, QAXIS, CROSS, DOT, Q2M, M33V = 38, 28, 13, 6, 9, 5, 30, 15
+M6V, BUILD_X = 72, 54
+POINTS_OBOX = 3 + QROT + 3 + QROT + 30 + QROT + 3 + QROT     # 191
+SPHERE_OBOX = 3 + QROT + 35 + QROT + 3 + QROT + 3            # 158
 
 
 def say(*parts):
@@ -71,20 +90,56 @@ def device_phase():
     return smi
 
 
+def ptxas_entries(log):
+    """{entry: {registers, stack, spill_stores, spill_loads}} of the three
+    __global__ entries, from nvcc -Xptxas -v."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(fs_\w+?)_kernel", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
 def build_phase():
+    """Build the kernel from this checkout; every entry must keep its
+    working set out of local memory: a stack frame of at most MAX_STACK
+    bytes and nothing spilled."""
     from roboticsplayroompybullet_torch.ops import cuda_build
     t0 = time.time()
     cuda_build.build(force=True)
     cuda_build.library()
     secs = time.time() - t0
-    ptxas = [ln.strip() for ln in cuda_build.BUILD_INFO.get("log", "")
-             .splitlines() if "registers" in ln or "spill" in ln
-             or "Compiling entry" in ln]
-    say(f"[build] nvcc sm_90a: {secs:.1f} s")
-    for ln in ptxas:
-        say("[build]   " + ln)
+    entries = ptxas_entries(cuda_build.BUILD_INFO.get("log", ""))
+    say(f"[build] nvcc sm_90a: {secs:.1f} s, {cuda_build.launch_smem_bytes()}"
+        " bytes of shared memory a block")
+    bad = []
+    for name in ("fs_sim", "fs_step", "fs_rollout"):
+        e = entries.get(name, {})
+        say(f"[build]   {name}: {e.get('registers')} registers, "
+            f"{e.get('stack')} bytes stack frame, {e.get('spill_stores')} / "
+            f"{e.get('spill_loads')} bytes spill stores / loads")
+        if (len(e) < 4 or e["stack"] > MAX_STACK or e["spill_stores"]
+                or e["spill_loads"]):
+            bad.append(name)
     record("build_s", secs)
-    record("ptxas", ptxas)
+    record("ptxas", entries)
+    if bad:
+        raise AssertionError(f"{bad}: stack frame over {MAX_STACK} bytes, "
+                             "spills, or no ptxas report")
 
 
 def field_diffs(cfg, tree, A, B):
@@ -135,6 +190,86 @@ def flagship_states(B, dev, seed):
     d["ctrl_q"] = (d["ctrl_q"] + rs.uniform(-0.1, 0.1, d["ctrl_q"].shape)
                    ).astype(np.float32)
     return interop.state_from_numpy(d, dev)
+
+
+def work(m, B, H, ik_iters=None, solve_iters=8):
+    """(FLOPs, bytes) of each kernel's call on the main path's shapes: sim
+    (B envs, 12 substeps), step (control + 12 substeps) and rollout (H
+    steps + ags), counted per phase from the source and this model's
+    static row table, link types and ancestors (PERF.md §6 gives the
+    per-phase formulas). Each input byte is read once, each output byte
+    written once."""
+    from roboticsplayroompybullet_torch.ops import cuda_build
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    ik = fs.default_ik_iters(m.arm) if ik_iters is None else ik_iters
+    v = cuda_build.model_values(*m, m.cfg.substeps, ik, solve_iters, False)
+    n, na, no = v["n_dof"], v["n_arm"], v["n_obj"]
+    rev, par = v["revolute"][:n], v["parent"][:n]
+    ns, nb = v["n_static"], v["art_nb"]
+    anc = [sum(v["pad_anc"][p * 7:p * 7 + na]) for p in range(4)]
+    n_ee = sum(v["ee_anc"][:na])
+    fk_pos = sum(QROT + 3 + QMUL + (QAXIS + QMUL + QNORM if r else 3 + QROT
+                                    + 3) for r in rev)
+    fk_vel = fk_pos + n * (3 + CROSS + 3 + QROT + 6)
+    site = QROT + 3 + QMUL
+    aba = sum((QAXIS + QMUL + Q2M if r else 3) + BUILD_X
+              + (M6V if p >= 0 else 0) + 12 + 3 * CROSS + 3 + M6V
+              + 3 * CROSS + 3                       # forward: v, c, pA
+              + M6V + 24 + 4                        # U, D, u
+              + (108 + 1 + M6V + 19 + BUILD_X + 432 + 468 + M6V + 6
+                 if p >= 0 else 0)                  # Ia, pa, X^T Ia X
+              + BUILD_X + M6V + 6 + 12 + 2 + 12     # accelerations
+              for r, p in zip(rev, par))
+    context = (4 * (QROT + 3 + QMUL + QROT + 3 + 3 + CROSS + 3)   # pads
+               + no * (Q2M + 72) + v["n_grip"] * (QROT + 1) + 4 * 6
+               + (QROT + 3 + CROSS) * sum(anc) + na + 15 * n + 60)
+    rows = cuda_build.row_table(m.cfg, m.scene, v["pad_slot"])
+    corner = 3 + QROT + 3
+    geo = {cuda_build.ROW_FLOOR: lambda r: corner + 1,
+           cuda_build.ROW_STATIC: lambda r: corner + ns * 36,
+           cuda_build.ROW_ART: lambda r: corner + QAXIS
+           + nb[r["k"]] * (QROT + 3 + POINTS_OBOX),
+           cuda_build.ROW_PAD_BLOCK: lambda r: SPHERE_OBOX,
+           cuda_build.ROW_BB: lambda r: corner + POINTS_OBOX,
+           cuda_build.ROW_PAD_ART: lambda r: QAXIS
+           + nb[r["k"]] * (QROT + 3 + SPHERE_OBOX),
+           cuda_build.ROW_PAD_FLOOR: lambda r: 8,
+           cuda_build.ROW_PAD_STATIC: lambda r: ns * 38}
+    gather = sum(geo[r["kind"]](r) + 38 for r in rows)
+    has = lambda r, key: r[key] >= 0  # noqa: E731
+    kdir = sum(3 * (36 * has(r, "a") + 36 * has(r, "b") + 25 * has(r, "k")
+                    + 9 * has(r, "g") + 9 * (anc[r["pj"]] if has(r, "pj")
+                                             else 0)) for r in rows)
+    accum = sum(18 * has(r, "a") + 18 * has(r, "b") + 19 * has(r, "k")
+                + 6 * has(r, "g") + 6 * (anc[r["pj"]] if has(r, "pj") else 0)
+                for r in rows)
+    apply_ = no * 24 + 8 + 2 * v["n_grip"] + 2 * na + 6
+    warm = sum(25 for _ in rows) + accum + apply_
+    sweep = sum(50 + 15 * (has(r, "a") or has(r, "k")) + 15 * has(r, "b")
+                + 12 * has(r, "k") + 6 * has(r, "g") + 3 * has(r, "vk") + 3
+                + 6 * (anc[r["pj"]] if has(r, "pj") else 0)
+                for r in rows) + accum + apply_
+    integrate = 6 * n + no * (9 + 12 + QMUL + QNORM) + 16
+    substep = (aba + fk_vel + context + gather + kdir + warm
+               + solve_iters * sweep + integrate)
+    ik_iter = (fk_pos + site + QMUL + 10 + (QROT + 3 + CROSS) * n_ee
+               + 42 * n_ee + 6 + 12 * n_ee + 2 * na + 290 + 30 * n_ee)
+    control = 2 * v["action_dim"] + fk_pos + site + 60 + ik * ik_iter + 4 * na
+    _, nf = fs._field_rows(m.cfg, m.tree)
+    _, ag = fs.ag_layout(m.cfg, m.tree)
+    sim = v["n_sub"] * substep
+    A, f4 = v["action_dim"], 4
+    return {"sim": (B * sim, f4 * B * (2 * nf + na + 1)),
+            "step": (B * (control + sim), f4 * B * (2 * nf + A)),
+            "rollout": (B * H * (control + sim + 4),
+                        f4 * B * (2 * nf + H * (A + ag)))}
+
+
+def bound_ms(flops, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_ms(fn, reps):
@@ -443,7 +578,10 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
 
 
 def timing_phase(m, dev):
-    """Each kernel and its plain version at B=4096 (rollout at H=2)."""
+    """Each kernel and its plain version at B=4096 (rollout at H=2), the
+    rollout kernel's batch scaling at H=40 and its split into Jacobi
+    sweeps / IK / the rest."""
+    from roboticsplayroompybullet_torch.ops import cuda_build
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     B, H = 4096, 2
     st = flagship_states(B, dev, seed=5)
@@ -476,8 +614,8 @@ def timing_phase(m, dev):
     record("timing_ms", {k: {"kernel": v[0], "plain": v[1]}
                          for k, v in out.items()})
 
-    # how the whole-horizon kernel scales with the batch (one thread per
-    # env, 128 a block: B=4096 fills 32 of the card's SMs)
+    # how the whole-horizon kernel scales with the batch (one warp per env:
+    # at 8 resident warps an SM, one wave holds 1056 envs)
     H = 40
     scaling = {}
     with torch.no_grad():
@@ -493,6 +631,17 @@ def timing_phase(m, dev):
             say(f"[scaling] rollout kernel H={H} B={Bs}: {ms:.3f} ms, "
                 f"{scaling[Bs]:.1f} rollouts/s")
     record("scaling_rollouts_per_s", scaling)
+
+    # where the rollout's time goes: the same call at solve_iters=0 and
+    # ik_iters=0 beside the full one (tools/time_fused_kernel.py)
+    import time_fused_kernel as tfk
+    X, acts = tfk.flagship_inputs(m, 4096, H, dev)
+    sp = tfk.phase_split(m, H, cuda_build.SOURCE, X, acts)
+    say(f"[split] rollout kernel H={H} B=4096: full {sp['full']:.3f} ms, "
+        f"solve_iters=0 {sp['no_sweeps']:.3f} ms, ik_iters=0 "
+        f"{sp['no_ik']:.3f} ms -> Jacobi sweeps {sp['sweeps']:.3f}, IK "
+        f"{sp['ik']:.3f}, rest {sp['rest']:.3f}")
+    record("split", sp)
     return out
 
 
@@ -501,8 +650,8 @@ def main():
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args()
     smi = device_phase()
-    sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests"),
+                    os.path.join(ROOT, "tools")]
     from roboticsplayroompybullet_torch.envs import core
     from roboticsplayroompybullet_torch.envs.config import CATALOG
 
@@ -517,10 +666,23 @@ def main():
     horizon_twin_phase(m, dev, states, acts, kernel_out)
     times = timing_phase(m, dev)
 
+    # the bound of each kernel at the shape it was timed at (B=4096, the
+    # rollout at H=2); no single PyTorch call computes the fused step
+    bounds = {k: bound_ms(*w) for k, w in work(m, 4096, 2).items()}
+    main_bound = bound_ms(*work(m, 4096, 40)["rollout"])
+    for k, (b_ms, by) in bounds.items():
+        say(f"[bound] {k}: {b_ms:.4f} ms ({by}), kernel {times[k][0]:.3f} ms:"
+            f" {100 * b_ms / times[k][0]:.2f} % of the bound")
+    say(f"[bound] main path rollout H=40 B=4096: {main_bound[0]:.4f} ms "
+        f"({main_bound[1]}), {100 * main_bound[0] / RESULTS['main_path']['ms']:.2f}"
+        " % of it")
+    record("bounds", {k: {"ms": v[0], "by": v[1]} for k, v in bounds.items()})
     kernels = [{"name": f"fused_step.{k}", "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in ("sim", "step", "rollout")]
+                "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": None}
+               for k in ("sim", "step", "rollout")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -29,8 +29,9 @@ def _to_torch(name: str, a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
-def state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> EnvState:
-    """Mapping of field name → numpy array (batch leading) → EnvState."""
+def state_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> EnvState:
+    """Mapping of field name → numpy array (batch leading) → EnvState, on
+    the card unless `device` says otherwise (the CPU tests pass "cpu")."""
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"state fields missing: {missing}")

@@ -47,28 +47,33 @@ ACTION_REL_CART = 6           # any other action_type: relative cartesian
 # what the last build did: seconds and the compiler's output
 BUILD_INFO: dict = {}
 _LOCK = threading.Lock()
-_LIB = None
+_LIBS: dict = {}
 
 
-def _source_text() -> str:
-    with open(SOURCE) as f:
+def _source_text(source: str = SOURCE) -> str:
+    with open(source) as f:
         return f.read()
 
 
 def _defines(src: str) -> dict:
+    """The integer #defines FS_* of the source, expressions evaluated in
+    order (a name defined twice, under #ifdef, keeps its last value)."""
     out = {}
-    for name, val in re.findall(r"^#define\s+(FS_\w+)\s+(\d+)\s*$", src,
-                                re.M):
-        out[name] = int(val)
+    text = src.replace("\\\n", " ")
+    for name, expr in re.findall(r"^#define\s+(FS_\w+)[ \t]+([^\n]+)$", text,
+                                 re.M):
+        expr = re.sub(r"\bFS_\w+\b",
+                      lambda t: str(out.get(t.group(0), t.group(0))), expr)
+        if re.fullmatch(r"[\d\s()+*/-]+", expr):
+            out[name] = int(eval(expr.replace("/", "//"),
+                                 {"__builtins__": {}}))
     return out
 
 
-def model_fields(src: str = None):
-    """[(name, 'int'|'float', count)] of the Model struct, in order."""
-    src = src if src is not None else _source_text()
-    m = re.search(r"#define FS_MODEL_FIELDS\(S, A\)(.*?)\n\n", src, re.S)
+def _fields(src: str, macro: str):
+    m = re.search(r"#define " + macro + r"\((?:S, )?A\)(.*?)\n\n", src, re.S)
     if m is None:
-        raise RuntimeError("FS_MODEL_FIELDS not found in " + SOURCE)
+        raise RuntimeError(macro + " not found in the kernel source")
     body = m.group(1).replace("\\\n", " ")
     consts = _defines(src)
     fields = []
@@ -81,6 +86,28 @@ def model_fields(src: str = None):
             n = int(eval(expr, {"__builtins__": {}}))
         fields.append((name, typ, n, kind))
     return fields
+
+
+def model_fields(src: str = None):
+    """[(name, 'int'|'float', count, 'S'|'A')] of the Model struct, in
+    order."""
+    return _fields(src if src is not None else _source_text(),
+                   "FS_MODEL_FIELDS")
+
+
+def row_capacity(src: str = None) -> int:
+    """Contact rows one team of FS_TEAM lanes holds: FS_SLOTS per lane."""
+    c = _defines(src if src is not None else _source_text())
+    return -(-c["FS_MAX_ROWS"] // c["FS_TEAM"]) * c["FS_TEAM"]
+
+
+def launch_smem_bytes(src: str = None) -> int:
+    """Dynamic shared memory of one block, as the launchers ask for it: the
+    Model rounded up to 16 bytes, then FS_ENVS EnvSh (all float arrays)."""
+    src = src if src is not None else _source_text()
+    model = ctypes.sizeof(_struct_type(model_fields(src)))
+    env = 4 * sum(n for _, _, n, _ in _fields(src, "FS_ENV_FIELDS"))
+    return -(-model // 16) * 16 + _defines(src)["FS_ENVS"] * env
 
 
 def _struct_type(fields):
@@ -99,41 +126,52 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def build(force: bool = False) -> str:
-    """Compile the kernel library if its source changed; return its path."""
-    src = _source_text()
+def _lib_path(source: str) -> str:
+    if os.path.abspath(source) == SOURCE:
+        return LIB
+    stem = os.path.splitext(os.path.basename(source))[0]
+    digest = hashlib.sha256(os.path.abspath(source).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:12]}.so")
+
+
+def build(force: bool = False, source: str = SOURCE) -> str:
+    """Compile the kernel library if its source changed; return its path.
+    `source` names another copy of the kernel (tools/time_fused_kernel.py
+    times two side by side); it builds into its own library."""
+    src = _source_text(source)
     digest = hashlib.sha256(src.encode()).hexdigest()
-    stamp = os.path.join(BUILD_DIR, "libfused_step.sha256")
-    if not force and os.path.exists(LIB) and os.path.exists(stamp):
+    lib_path = _lib_path(source)
+    stamp = os.path.splitext(lib_path)[0] + ".sha256"
+    if not force and os.path.exists(lib_path) and os.path.exists(stamp):
         with open(stamp) as f:
             if f.read().strip() == digest:
                 BUILD_INFO.update(seconds=0.0, cached=True)
-                return LIB
+                return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB + f".tmp{os.getpid()}"
+    tmp = lib_path + f".tmp{os.getpid()}"
     cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", tmp, SOURCE]
+           "-fPIC", "-Xptxas", "-v", "-o", tmp, source]
     t0 = time.time()
     res = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.time() - t0
     log = res.stdout + res.stderr
-    with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+    with open(os.path.splitext(lib_path)[0] + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + log)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, LIB)
+    os.replace(tmp, lib_path)
     with open(stamp, "w") as f:
         f.write(digest + "\n")
     BUILD_INFO.update(seconds=secs, cached=False, log=log)
-    return LIB
+    return lib_path
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _LIB
+def library(source: str = SOURCE):
+    """The loaded kernel library of `source` (built on first use)."""
+    source = os.path.abspath(source)
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build())
+        if source not in _LIBS:
+            lib = ctypes.CDLL(build(source=source))
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.fs_model_layout.argtypes = [ctypes.POINTER(I), I]
             lib.fs_model_layout.restype = I
@@ -144,13 +182,13 @@ def library():
                 f.restype = I
             lib.fs_error_string.argtypes = [I]
             lib.fs_error_string.restype = ctypes.c_char_p
-            _check_layout(lib)
-            _LIB = lib
-    return _LIB
+            _check_layout(lib, source)
+            _LIBS[source] = lib
+    return _LIBS[source]
 
 
-def _check_layout(lib):
-    fields = model_fields()
+def _check_layout(lib, source: str = SOURCE):
+    fields = model_fields(_source_text(source))
     S = _struct_type(fields)
     offs = (ctypes.c_int * (len(fields) + 1))()
     n = lib.fs_model_layout(offs, len(fields) + 1)
@@ -168,6 +206,56 @@ def _check_layout(lib):
 # ---------------------------------------------------------------------------
 # model constants
 # ---------------------------------------------------------------------------
+
+# contact-row kinds of the kernel (FS_ROW_*), in gather_bundles' order
+(ROW_FLOOR, ROW_STATIC, ROW_ART, ROW_PAD_BLOCK, ROW_BB, ROW_PAD_ART,
+ ROW_PAD_FLOOR, ROW_PAD_STATIC) = range(8)
+
+
+def row_table(cfg, scene, pad_slot) -> list:
+    """The model's contact rows in gather_bundles' order, one dict each:
+    kind, idx (block corner or pad), o (block), and the solver indices a,
+    b, k, g, pj, vk (-1 where absent)."""
+    rows = []
+
+    def put(kind, idx=0, o=0, a=-1, b=-1, k=-1, g=-1, pj=-1, vk=-1):
+        rows.append(dict(kind=kind, idx=idx, o=o, a=a, b=b, k=k, g=g, pj=pj,
+                         vk=vk))
+
+    from . import fused_step as fs
+    arts = [k for k in range(4)
+            if scene.has_articulated and fs._real_boxes(scene, k)]
+    n_static = int(scene.static_pos.shape[0])
+    pads = range(len(pad_slot))
+    for o in range(cfg.num_objects):
+        for c in range(8):
+            put(ROW_FLOOR, c, o, a=o)
+        if n_static:
+            for c in range(8):
+                put(ROW_STATIC, c, o, a=o)
+        for k in arts:
+            for c in range(8):
+                put(ROW_ART, c, o, a=o, k=k)
+        for p in pads:
+            put(ROW_PAD_BLOCK, p, o, a=o, g=pad_slot[p], vk=p)
+    if cfg.num_objects == 2:
+        for c in range(8):
+            put(ROW_BB, c, 0, a=0, b=1)
+    for k in arts:
+        for p in pads:
+            put(ROW_PAD_ART, p, k=k, g=pad_slot[p], pj=p, vk=p)
+    for p in pads:
+        put(ROW_PAD_FLOOR, p, g=pad_slot[p], pj=p, vk=p)
+        if n_static:
+            put(ROW_PAD_STATIC, p, g=pad_slot[p], pj=p, vk=p)
+    return rows
+
+
+def row_code(r: dict) -> int:
+    """One row packed as the kernel's row_code (bits in fused_step.cu)."""
+    return (r["kind"] | r["idx"] << 3 | r["o"] << 6 | (r["a"] + 1) << 7
+            | (r["b"] + 1) << 9 | (r["k"] + 1) << 11 | (r["g"] + 1) << 14
+            | (r["pj"] + 1) << 16 | (r["vk"] + 1) << 19)
 
 def model_values(cfg, tree, arm, scene, n_substeps: int, ik_iters: int,
                  solve_iters: int, with_ee: bool) -> dict:
@@ -209,6 +297,9 @@ def model_values(cfg, tree, arm, scene, n_substeps: int, ik_iters: int,
     v["art_rev"] = [int(r) for r in scene.art_is_revolute]
     real = [fs._real_boxes(scene, k) for k in range(4)]
     v["art_nb"] = [len(r) for r in real]
+    rows = row_table(cfg, scene, v["pad_slot"])
+    v["n_rows"] = len(rows)
+    v["row_code"] = [row_code(r) for r in rows]
 
     v["dt"] = float(cfg.dt)
     v["half_dt"] = float(cfg.dt) * 0.5
@@ -284,9 +375,10 @@ def model_values(cfg, tree, arm, scene, n_substeps: int, ik_iters: int,
     return v
 
 
-def model_bytes(values: dict) -> bytes:
-    """Pack the Model struct; every field must be given and fit."""
-    fields = model_fields()
+def model_bytes(values: dict, source: str = SOURCE) -> bytes:
+    """Pack the Model struct of `source`; every field must be given and
+    fit."""
+    fields = model_fields(_source_text(source))
     S = _struct_type(fields)
     s = S()
     names = {f[0] for f in fields}
@@ -313,10 +405,15 @@ class KernelModel:
     """One model's constants on the card plus the launchers."""
 
     def __init__(self, cfg, tree, arm, scene, n_substeps: int, ik_iters: int,
-                 solve_iters: int, with_ee: bool = False):
-        self.blob = model_bytes(model_values(
-            cfg, tree, arm, scene, n_substeps, ik_iters, solve_iters,
-            with_ee))
+                 solve_iters: int, with_ee: bool = False,
+                 source: str = SOURCE):
+        v = model_values(cfg, tree, arm, scene, n_substeps, ik_iters,
+                         solve_iters, with_ee)
+        if source != SOURCE:      # another copy may lack the newer fields
+            names = {f[0] for f in model_fields(_source_text(source))}
+            v = {k: x for k, x in v.items() if k in names}
+        self.source = source
+        self.blob = model_bytes(v, source)
         self._on = {}
 
     def _model_on(self, device) -> torch.Tensor:
@@ -329,7 +426,7 @@ class KernelModel:
 
     def launch(self, which: str, device, B: int, *args):
         """Enqueue one kernel on the current stream; raise if refused."""
-        lib = library()
+        lib = library(self.source)
         m = self._model_on(device).data_ptr()
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):     # the runtime launches on it

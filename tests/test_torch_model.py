@@ -74,7 +74,7 @@ def test_kernel_model_struct_packs(env_id):
 def test_pack_state_matches_jax_and_round_trips():
     m = core.build_model(CATALOG[FLAGSHIP])
     d = tp.load(f"reset_{tp.key(FLAGSHIP)}")
-    st = interop.state_from_numpy(d)
+    st = interop.state_from_numpy(d, device="cpu")
     X = fs.pack_state(m.cfg, m.tree, st)
     jm = jcore.build_model(JCATALOG[FLAGSHIP])
     jX = jfs.pack_state(jm.cfg, jm.tree,
@@ -106,7 +106,7 @@ def test_pack_state_without_objects_round_trips():
              art_qd=rs.randn(B, 4).astype(np.float32),
              has_prev=np.zeros(B, bool), rng=np.zeros((B, 2), np.uint32),
              t=np.zeros(B, np.int32))
-    st = interop.state_from_numpy(d)
+    st = interop.state_from_numpy(d, device="cpu")
     X = fs.pack_state(m.cfg, m.tree, st)
     assert X.shape == (2 * n + 8, B)
     back = fs.unpack_state(m.cfg, m.tree, X, st)
@@ -128,3 +128,47 @@ def test_dial_to_0_1_range_matches_on_negative_inputs():
     X[NF - 5] = torch.tensor(x)                       # art_q[3], the dial
     ag = fs.make_lane_ag(m.cfg, m.tree, m.arm)(X)
     np.testing.assert_allclose(ag[-1].numpy(), ref, rtol=0, atol=1e-7)
+
+
+def _plain_bundles(m):
+    """The plain twin's contact bundles of one env at rest (B=1)."""
+    _, NF = fs._field_rows(m.cfg, m.tree)
+    X = torch.zeros(NF, 1)
+    quat0 = 2 * m.tree.n_dof + 3 * m.cfg.num_objects
+    X[quat0 + 3:quat0 + 4 * m.cfg.num_objects:4] = 1.0   # unit quaternions
+    st = fs._lanes_from_block(m.cfg, m.tree, X)
+    kin = fs.lane_fk_vel(m.tree, st["q"], st["qd"])
+    pads = fs.lane_pad_kinematics(m.tree, m.arm, kin)
+    return fs.gather_bundles(m.cfg, m.tree, m.arm, m.scene, st, kin,
+                             st["qd"], *pads)[0]
+
+
+@pytest.mark.parametrize("env_id", sorted(JCATALOG))
+def test_kernel_row_table_matches_plain_bundles(env_id):
+    """The kernel's static contact-row table (Model.n_rows, row_code) has
+    the plain twin's rows, bundle by bundle, and fits the lanes' slots."""
+    m = core.build_model(CATALOG[env_id])
+    v = cuda_build.model_values(*m, n_substeps=12, ik_iters=24,
+                                solve_iters=8, with_ee=False)
+    rows = cuda_build.row_table(m.cfg, m.scene, v["pad_slot"])
+    assert [cuda_build.row_code(r) for r in rows] == v["row_code"]
+    i = 0
+    for bd in _plain_bundles(m):
+        for r in rows[i:i + bd.depth.shape[0]]:
+            assert (r["a"], r["b"], r["k"], r["g"], r["pj"]) == (
+                bd.a, bd.b, bd.k, bd.g, bd.pj), (i, r, bd[4:])
+            assert (r["vk"] >= 0) == (bd.vkin is not None), (i, r)
+        i += bd.depth.shape[0]
+    assert v["n_rows"] == i == len(rows)
+    assert v["n_rows"] <= cuda_build.row_capacity()
+
+
+@pytest.mark.parametrize("env_id", sorted(JCATALOG))
+def test_kernel_launch_shared_memory_fits_a_block(env_id):
+    """Model (its table filled for this env) plus FS_ENVS EnvSh per block
+    stay within the 232,448 bytes of shared memory a Hopper block may use."""
+    m = core.build_model(CATALOG[env_id])
+    v = cuda_build.model_values(*m, n_substeps=12, ik_iters=24,
+                                solve_iters=8, with_ee=True)
+    smem = cuda_build.launch_smem_bytes()
+    assert -(-len(cuda_build.model_bytes(v)) // 16) * 16 < smem <= 232448

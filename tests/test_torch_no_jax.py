@@ -96,7 +96,22 @@ def test_backend_resolution_has_no_fallback():
     z = tp.load(f"rollout_{tp.key(ENV)}")
     from roboticsplayroompybullet_torch import interop
     st = interop.state_from_numpy(
-        {k[3:]: v[:4] for k, v in z.items() if k.startswith("in_")})
+        {k[3:]: v[:4] for k, v in z.items() if k.startswith("in_")},
+        device="cpu")
     acts = torch.tensor(z["actions"][:4, :1])
     with pytest.raises(ValueError, match="CUDA tensor"):
         F.make_fused_rollout_whole(m, 1, backend="cuda")(st, acts)
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    """States go to the card unless the caller asks for the CPU: here, with
+    no CUDA build of torch, the default raises instead of falling back."""
+    from roboticsplayroompybullet_torch import interop
+    z = tp.load(f"rollout_{tp.key(ENV)}")
+    d = {k[3:]: v[:2] for k, v in z.items() if k.startswith("in_")}
+    assert interop.state_from_numpy(d, device="cpu").q.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert interop.state_from_numpy(d).q.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        interop.state_from_numpy(d)

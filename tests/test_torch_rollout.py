@@ -2,6 +2,9 @@
 physics, per-step achieved goals, rewards, unpack — through the port's
 make_fused_rollout_whole, against the JAX package's
 make_fused_rollout_whole(backend="reference") (committed fixtures)."""
+import dataclasses
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +24,15 @@ import _torch_port as tp
 torch.set_num_threads(1)
 
 
+@functools.lru_cache(maxsize=None)
 def _run(env_id):
+    """The env's fixture rollout through make_fused_rollout_whole, once per
+    module (the tests below share it)."""
     z = tp.load(f"rollout_{tp.key(env_id)}")
     m = core.build_model(CATALOG[env_id])
     st = interop.state_from_numpy(
-        {k[3:]: v for k, v in z.items() if k.startswith("in_")})
+        {k[3:]: v for k, v in z.items() if k.startswith("in_")},
+        device="cpu")
     roll = F.make_fused_rollout_whole(m, int(z["horizon"]),
                                       n_substeps=int(z["n_substeps"]))
     with torch.no_grad():
@@ -67,21 +74,24 @@ def test_reach_rollout_ag_matches_jax():
 
 def test_per_step_rollout_equals_whole_horizon():
     """make_fused_rollout (one step per call) and make_fused_batched_step
-    give the whole-horizon rollout's results."""
+    give the whole-horizon rollout's results (the reach rollout above)."""
     env_id = "UR5Reach-v0"
-    z = tp.load(f"rollout_{tp.key(env_id)}")
+    z, f1, r1, a1 = _run(env_id)
     m = core.build_model(CATALOG[env_id])
-    B, H = 16, 2
+    m = m._replace(cfg=dataclasses.replace(m.cfg,
+                                           substeps=int(z["n_substeps"])))
     st = interop.state_from_numpy(
-        {k[3:]: v[:B] for k, v in z.items() if k.startswith("in_")})
-    acts = torch.tensor(z["actions"][:B])
+        {k[3:]: v for k, v in z.items() if k.startswith("in_")},
+        device="cpu")
+    acts = torch.tensor(z["actions"])
+    B = 16
+    st16 = interop.state_from_numpy(
+        {k[3:]: v[:B] for k, v in z.items() if k.startswith("in_")},
+        device="cpu")
     with torch.no_grad():
-        f1, r1, a1 = F.make_fused_rollout_whole(m, H, ik_iters=4,
-                                                solve_iters=2)(st, acts)
-        f2, r2, a2 = F.make_fused_rollout(m, ik_iters=4,
-                                          solve_iters=2)(st, acts)
-        s1 = F.make_fused_batched_step(m)(st, acts[:, 0])
-        f3, _, _ = F.make_fused_rollout_whole(m, 1)(st, acts[:, :1])
+        f2, r2, a2 = F.make_fused_rollout(m)(st, acts)
+        s1 = F.make_fused_batched_step(m)(st16, acts[:B, 0])
+        f3, _, _ = F.make_fused_rollout_whole(m, 1)(st16, acts[:B, :1])
     np.testing.assert_array_equal(a1.numpy(), a2.numpy())
     np.testing.assert_array_equal(r1.numpy(), r2.numpy())
     np.testing.assert_array_equal(f1.q.numpy(), f2.q.numpy())
@@ -98,7 +108,7 @@ def test_batched_step_matches_jax():
     d = tp.load(f"reset_{tp.key(env_id)}")
     m = core.build_model(CATALOG[env_id])
     st = fs.unpack_state(m.cfg, m.tree, torch.tensor(z["X"]),
-                         interop.state_from_numpy(d))
+                         interop.state_from_numpy(d, device="cpu"))
     with torch.no_grad():
         out = F.make_fused_batched_step(m)(st, torch.tensor(z["actions"].T))
     X2 = fs.pack_state(m.cfg, m.tree, out).numpy()
