@@ -13,12 +13,21 @@ holds its rollout to the plain twin at that same shape, and times it with
 CUDA events: each kernel beside its plain version and its bound (FLOPs
 counted from the source over 67 TFLOP/s, bytes over 3.35 TB/s), the batch
 scaling, and the rollout's split into Jacobi sweeps / IK / the rest.
+Then the MPC slice (solver/mpc.py): the planners' preview model (ik 8 /
+solve 8, with_ee) against the plain twin, one batched MPC step through the
+kernels against the plain twin and against the JAX fixture, the MPC path
+(an eval control step at 4 envs x 1024 candidates and the UR5Reach closed
+loop, which must close the EE-goal distance below 0.75 of its start in 20
+steps) with its launch counts, and its times: ms per replan (pop=1024,
+H=10, 2 iterations) beside the preview kernel's, ms per eval control step
+split into previews and the executed step.
 Every phase prints its numbers; any failure raises and the
-script exits non-zero without a result line. About 10 minutes on one
+script exits non-zero without a result line. About 12 minutes on one
 H100, most of it the plain twin's eager steps (the H=40 check takes 40).
 
-The last two lines are one JSON object per kernel ({"kernels": [...]}),
-then {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
+The last two lines are one JSON object per kernel ({"kernels": [...]};
+`launches` adds the main path's and the MPC path's counts), then
+{"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
 """
 import argparse
@@ -64,6 +73,11 @@ SPHERE_OBOX = 3 + QROT + 35 + QROT + 3 + QROT + 3            # 158
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def card():
+    """The card's nvidia-smi name and power limit, for a result line."""
+    return RESULTS["nvidia_smi"]
 
 
 def record(key, value):
@@ -645,6 +659,345 @@ def timing_phase(m, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MPC slice (solver/mpc.py)
+# ---------------------------------------------------------------------------
+
+# the fused replan of bench.py:270-283 and the eval control step at the
+# tools/eval_mpc.py defaults (4 envs, sigma 0.3)
+PLAN_CFG = dict(horizon=10, pop=1024, iters=2, algorithm="mppi")
+EVAL_ENVS, EVAL_SIGMA = 4, 0.3
+CHAIN = 10                          # sequential replans timed in one chain
+REACH_ENVS, REACH_STEPS, REACH_SHRINK = 3, 20, 0.75  # test_solver.py:75-91
+# the closed loop refines by CEM (its elite sigma shrinks as the EE nears
+# the goal; MPPI keeps sigma_init, and its mean jitters by about that much)
+# from a plan that holds the start pose (init_plan_from_state)
+REACH_CFG = dict(PLAN_CFG, algorithm="cem")
+PLAN_P99, PLAN_MAX = 1e-3, 5e-2     # plan means (tests/test_torch_mpc.py)
+
+
+def preview_phase(dev):
+    """The planners' preview model (ik 8 / solve 8 iterations, with_ee)
+    through the rollout kernel against the plain twin, per field at the
+    twin bounds and the ags (ee tail included) within POS_MAX, at B=1024,
+    H=2 on the flagship and the 2-block pandaPlay. The actions are what the
+    preview sees in a replan: candidates drawn by the planner's sampler
+    (sigma 0.3) about a plan that holds each env's pose."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.solver import mpc
+    cfg = mpc.MPCConfig(horizon=2, sigma_init=EVAL_SIGMA)
+    kw = dict(horizon=cfg.horizon, ik_iters=cfg.preview_ik_iters,
+              solve_iters=cfg.preview_solve_iters, with_ee=True)
+    B = 1024
+    for env_id in (FLAGSHIP, "pandaPlay-v0"):
+        m = core.build_model(CATALOG[env_id])
+        if env_id == FLAGSHIP:
+            st = flagship_states(B, dev, seed=8)
+        else:
+            X0 = tp.load(f"sim3_{tp.key(env_id)}")["X"]
+            X0 = torch.tensor(np.tile(X0, (1, -(-B // X0.shape[1])))[:, :B],
+                              device=dev)
+            st = fs.unpack_state(m.cfg, m.tree, X0,
+                                 tp.zero_state(m.cfg, m.tree, B, dev))
+        X = fs.pack_state(m.cfg, m.tree, st)
+        g = torch.Generator(device=dev).manual_seed(9)
+        high = torch.tensor(m.cfg.action_high, device=dev)
+        acts = mpc._sample(g, mpc.init_plan_from_state(m, cfg, st), cfg, 1,
+                           high)[:, 0].permute(1, 2, 0).contiguous()
+        with torch.no_grad():
+            kr, kag = fs.make_cuda_rollout(*m, **kw)(X, acts)
+            pr, pag = fs.make_reference_rollout(*m, **kw)(X, acts)
+        torch.cuda.synchronize()
+        tag = (f"preview {env_id} H=2 B={B} ik {kw['ik_iters']} solve "
+               f"{kw['solve_iters']} with_ee")
+        check_fields(tag, field_diffs(m.cfg, m.tree, kr, pr))
+        _, ag_dim = fs.ag_layout(m.cfg, m.tree, with_ee=True)
+        dag = float((kag - pag).abs().max())
+        ee = float((kag[:, -3:] - pag[:, -3:]).abs().max())
+        say(f"[{tag}] ags {tuple(kag.shape)} max={dag:.3e}, ee tail max="
+            f"{ee:.3e} (<={POS_MAX:g}); {card()}")
+        record(f"{tag} ags", {"max": dag, "ee_max": ee})
+        if kag.shape != (2, ag_dim, B) or dag > POS_MAX:
+            raise AssertionError(f"{tag}: ags differ from the plain twin's")
+
+
+def _mpc_compare(tag, m, got, want):
+    """The MPC step's bounds: each state field max <= 1e-4, plan means
+    p99 <= PLAN_P99 and max <= PLAN_MAX, sigmas equal, t advanced."""
+    st, pl = got[0], got[1]
+    fields = {f: float((getattr(st, f) - want[f]).abs().max())
+              for f in POSITION_FIELDS + VELOCITY_FIELDS}
+    d = (pl.mean - want["mean"]).abs().flatten()
+    p99, mx = float(torch.quantile(d, 0.99)), float(d.max())
+    say(f"[{tag}] states max " + ", ".join(
+        f"{k} {v:.2e}" for k, v in fields.items()) + f" (<={POS_MAX:g}); "
+        f"plan means p99={p99:.3e} (<={PLAN_P99:g}) max={mx:.3e} "
+        f"(<={PLAN_MAX:g}); {card()}")
+    record(tag, {"states_max": fields, "plan_p99": p99, "plan_max": mx})
+    if (max(fields.values()) > POS_MAX or p99 > PLAN_P99 or mx > PLAN_MAX
+            or not torch.equal(pl.sigma, want["sigma"])
+            or not torch.equal(st.t, want["t"])):
+        raise AssertionError(f"{tag}: outside the bounds")
+
+
+def mpc_twin_phase(dev):
+    """make_batched_fused_mpc_step through the kernels against the plain
+    twin on the card from the same generator seed (2 envs x 64, H=3, one
+    iteration, full model, with_ee and the fixture's cost_fn), then through
+    the kernels against the JAX step of tests/torch_fixtures (its normals,
+    1 substep)."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch import interop
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.solver import mpc
+    m = core.build_model(CATALOG[FLAGSHIP])
+    cfg = mpc.MPCConfig(horizon=3, pop=64, iters=1, algorithm="mppi",
+                        sigma_init=EVAL_SIGMA)
+    st = flagship_states(2, dev, seed=10)
+    plans = mpc.init_batched_plan(m, cfg, 2, st)
+    params = {"reach": torch.tensor([0.5, 1.0], device=dev)}
+    out = {}
+    with torch.no_grad():
+        for backend in ("cuda", "reference"):
+            step = mpc.make_batched_fused_mpc_step(
+                m, cfg, 2, backend=backend, with_ee=True,
+                cost_fn=tp.mpc_step_cost(m.cfg, cfg.weights))
+            g = torch.Generator(device=dev).manual_seed(11)
+            out[backend] = step(st, plans, g, params)
+    torch.cuda.synchronize()
+    ref_st, ref_pl = out["reference"][:2]
+    want = {f: getattr(ref_st, f) for f in POSITION_FIELDS + VELOCITY_FIELDS}
+    want.update(mean=ref_pl.mean, sigma=ref_pl.sigma, t=ref_st.t)
+    _mpc_compare("mpc step cuda vs reference, 2x64 H=3", m, out["cuda"],
+                 want)
+
+    z = tp.load(f"mpc_step_{tp.key(FLAGSHIP)}")
+    cfg = mpc.MPCConfig(horizon=int(z["horizon"]), pop=int(z["pop"]),
+                        iters=int(z["iters"]), algorithm="mppi",
+                        sigma_init=float(z["sigma_init"]))
+    normals = iter(torch.tensor(z["normals"], device=dev))
+    draw = mpc._normals
+    mpc._normals = lambda gen, shape, device: next(normals).reshape(shape)
+    try:
+        st = interop.state_from_numpy(
+            {k[3:]: v for k, v in z.items() if k.startswith("in_")}, dev)
+        step = mpc.make_batched_fused_mpc_step(
+            m, cfg, int(z["n_envs"]), backend="cuda",
+            n_substeps=int(z["n_substeps"]), with_ee=True,
+            cost_fn=tp.mpc_step_cost(m.cfg, cfg.weights))
+        with torch.no_grad():
+            got = step(st, mpc.PlanState(
+                torch.tensor(z["plan_mean"], device=dev),
+                torch.tensor(z["plan_sigma"], device=dev)),
+                torch.Generator(device=dev),
+                {"reach": torch.tensor(z["reach"], device=dev)})
+        torch.cuda.synchronize()
+    finally:
+        mpc._normals = draw
+    want = {f: torch.tensor(z[f"out_{f}"], device=dev)
+            for f in POSITION_FIELDS + VELOCITY_FIELDS + ("t",)}
+    want.update(mean=torch.tensor(z["out_mean"], device=dev),
+                sigma=torch.tensor(z["out_sigma"], device=dev))
+    _mpc_compare("mpc step kernels vs JAX fixture, 2x64 H=2", m, got, want)
+
+
+def mpc_path_inputs(dev):
+    """Models, configs, start states and plans of the MPC path: the
+    flagship replan and eval step, the UR5Reach closed loop from the reach
+    fixture's start states."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch import interop
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.solver import mpc
+    m = core.build_model(CATALOG[FLAGSHIP])
+    plan_cfg = mpc.MPCConfig(**PLAN_CFG)
+    eval_cfg = mpc.MPCConfig(**PLAN_CFG)._replace(sigma_init=EVAL_SIGMA)
+    one = flagship_states(1, dev, seed=12)
+    envs = flagship_states(EVAL_ENVS, dev, seed=13)
+    z = tp.load("rollout_UR5Reach")
+    reach = interop.state_from_numpy(
+        {k[3:]: v[:REACH_ENVS] for k, v in z.items()
+         if k.startswith("in_")}, dev)
+    return dict(m=m, plan_cfg=plan_cfg, eval_cfg=eval_cfg, one=one,
+                plan0=mpc.PlanState(*(x[0] for x in mpc.init_batched_plan(
+                    m, plan_cfg, 1, one))),
+                envs=envs, plans=mpc.init_batched_plan(m, eval_cfg,
+                                                       EVAL_ENVS, envs),
+                params={"reach": torch.full((EVAL_ENVS,), 0.5, device=dev)},
+                m_reach=core.build_model(CATALOG["UR5Reach-v0"]),
+                reach_cfg=mpc.MPCConfig(**REACH_CFG), reach=reach)
+
+
+def mpc_path_phase(dev, p):
+    """The MPC path, with the launch counts read around it: one eval
+    control step (4 envs x 1024 candidates) and the UR5Reach closed loop
+    (make_fused_mpc_rollout, REACH_CFG: 1024 candidates, H=10, 2 CEM
+    iterations, 20 steps, from a pose-holding plan) from each of the first
+    REACH_ENVS start states, each of which must end below REACH_SHRINK of
+    its start EE-goal distance. After the counts are read, the same loops
+    by MPPI from init_plan's zero mean (make_fused_mpc_rollout's default)
+    are printed beside them, not held to the bar."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch.envs.obs import achieved_goal
+    from roboticsplayroompybullet_torch.envs.state import EnvState
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.solver import cost, mpc
+    m, mr, cfg = p["m"], p["m_reach"], p["plan_cfg"]
+    step = mpc.make_batched_fused_mpc_step(
+        m, p["eval_cfg"], EVAL_ENVS, with_ee=True,
+        cost_fn=tp.mpc_step_cost(m.cfg, p["eval_cfg"].weights))
+    rcfg = p["reach_cfg"]
+    run = mpc.make_fused_mpc_rollout(mr, rcfg, REACH_STEPS)
+    dist = lambda s: cost.goal_distance(  # noqa: E731
+        mr.cfg, achieved_goal(mr.cfg, mr.tree, mr.arm, s), s.goal)
+    fs.reset_launch_counts()
+    with torch.no_grad():
+        st2, pl2, rs, ags = step(p["envs"], p["plans"],
+                                 torch.Generator(device=dev).manual_seed(14),
+                                 p["params"])
+        loops = []
+        for i in range(REACH_ENVS):
+            s0 = EnvState(**{k: v[i:i + 1] for k, v in vars(p["reach"])
+                             .items()})
+            hold = mpc.PlanState(*(x[0] for x in mpc.init_plan_from_state(
+                mr, rcfg, s0)))
+            fin, acts, rws, bests = run(
+                s0, torch.Generator(device=dev).manual_seed(15 + i), hold)
+            loops.append((s0, fin, acts, bests))
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    say(f"[mpc path] launches {launches}")
+    for k in ("rollout", "step"):
+        if launches[k] < 1:
+            raise AssertionError(f"the {k} kernel never launched")
+    A = m.cfg.action_dim
+    if (st2.q.shape != p["envs"].q.shape or pl2.mean.shape != (
+            EVAL_ENVS, cfg.horizon, A) or rs.shape != (EVAL_ENVS,)
+            or not all(bool(torch.isfinite(t).all())
+                       for t in (st2.q, st2.obj_pos, pl2.mean, ags))
+            or not bool((st2.t == p["envs"].t + 1).all())):
+        raise AssertionError("mpc eval step: wrong shapes, t or non-finite")
+    high = torch.tensor(m.cfg.action_high, device=dev)
+    if not bool((pl2.mean.abs() <= high).all()):
+        raise AssertionError("mpc eval step: plan outside the action bounds")
+    res = []
+    for i, (s0, fin, acts, bests) in enumerate(loops):
+        d0, d1 = float(dist(s0)[0]), float(dist(fin)[0])
+        ok = (d1 < REACH_SHRINK * d0 and bool(torch.isfinite(bests).all())
+              and acts.shape == (REACH_STEPS, mr.cfg.action_dim))
+        say(f"[mpc closed loop] UR5Reach env {i}, CEM: EE-goal distance "
+            f"{d0:.4f} -> {d1:.4f} m in {REACH_STEPS} steps, ratio "
+            f"{d1 / d0:.3f} (<{REACH_SHRINK:g}) {'ok' if ok else 'FAIL'}; "
+            f"{card()}")
+        res.append({"d0": d0, "d1": d1})
+        if not ok:
+            raise AssertionError(f"closed loop env {i}: {d0} -> {d1}")
+    mppi = mpc.make_fused_mpc_rollout(mr, cfg, REACH_STEPS)
+    for i, (s0, _, _, _) in enumerate(loops):
+        with torch.no_grad():
+            fin = mppi(s0, torch.Generator(device=dev).manual_seed(15 + i))[0]
+        d0, d1 = float(dist(s0)[0]), float(dist(fin)[0])
+        say(f"[mpc closed loop] UR5Reach env {i}, MPPI from the zero mean: "
+            f"{d0:.4f} -> {d1:.4f} m, ratio {d1 / d0:.3f} (not held to the "
+            "bar)")
+        res[i]["mppi_d1"] = d1
+    record("mpc_path", {"launches": launches, "closed_loop": res})
+    return launches
+
+
+def _chain_ms(fn, reps):
+    """(device ms per call, host ms per call to enqueue) of `reps`
+    sequential calls, CUDA events around the chain, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    fn(reps)
+    e1.record()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps, host
+
+
+def mpc_timing_phase(dev, p):
+    """Replan latency (a chain of CHAIN replans, each consuming the last
+    plan, no host read inside) beside the preview rollout kernel at the
+    same shape; the eval control step split into previews and the
+    executed step."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.solver import mpc
+    m, cfg = p["m"], p["plan_cfg"]
+    planner = mpc.make_fused_planner(m, cfg)
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def chain(n=1):
+        pl = p["plan0"]
+        for _ in range(n):
+            pl, _ = planner(p["one"], pl, g)
+        return pl
+
+    kw = dict(ik_iters=cfg.preview_ik_iters,
+              solve_iters=cfg.preview_solve_iters)
+    H, A, pop = cfg.horizon, m.cfg.action_dim, cfg.pop
+    rs = np.random.RandomState(17)
+    acts = torch.tensor(rs.uniform(-0.25, 0.25, (H, A, EVAL_ENVS * pop)),
+                        dtype=torch.float32, device=dev)
+    X1 = fs.pack_state(m.cfg, m.tree, p["one"]).repeat(1, pop)
+    XE = fs.pack_state(m.cfg, m.tree, p["envs"]).repeat_interleave(pop, 1)
+    roll = fs.make_cuda_rollout(*m, H, **kw)
+    roll_ee = fs.make_cuda_rollout(*m, H, with_ee=True, **kw)
+    stepk = fs.make_cuda_step(*m)
+    XS = fs.pack_state(m.cfg, m.tree, p["envs"])
+    a_exec = acts[0, :, :EVAL_ENVS].contiguous()
+    step = mpc.make_batched_fused_mpc_step(
+        m, p["eval_cfg"], EVAL_ENVS, with_ee=True,
+        cost_fn=tp.mpc_step_cost(m.cfg, p["eval_cfg"].weights))
+    ge = torch.Generator(device=dev).manual_seed(18)
+
+    def eval_chain(n=1):
+        st, pl = p["envs"], p["plans"]
+        for _ in range(n):
+            st, pl, _, _ = step(st, pl, ge, p["params"])
+        return st
+
+    with torch.no_grad():
+        replan, replan_host = _chain_ms(chain, CHAIN)
+        a1 = acts[..., :pop].contiguous()
+        k1 = time_ms(lambda: roll(X1, a1), 5)
+        ev, ev_host = _chain_ms(eval_chain, 5)
+        kE = time_ms(lambda: roll_ee(XE, acts), 5)
+        kx = time_ms(lambda: stepk(XS, a_exec), 5)
+    bound1 = bound_ms(*work(m, pop, H, **kw)["rollout"])
+    boundE = bound_ms(*work(m, EVAL_ENVS * pop, H, **kw)["rollout"])
+    glue = replan - cfg.iters * k1
+    say(f"[mpc replan] pop={pop} H={H} iters={cfg.iters} mppi: "
+        f"{replan:.3f} ms per replan (chain of {CHAIN}; host enqueue "
+        f"{replan_host:.3f} ms per replan); preview rollout kernel B={pop} "
+        f"H={H} ik {kw['ik_iters']}: {k1:.3f} ms (bound {bound1[0]:.4f} ms, "
+        f"{bound1[1]}); replan - {cfg.iters} x kernel = {glue:.3f} ms; "
+        f"{card()}")
+    say(f"[mpc eval step] {EVAL_ENVS} envs x {pop} H={H} iters="
+        f"{cfg.iters}: {ev:.3f} ms per control step (host enqueue "
+        f"{ev_host:.3f} ms); preview rollout kernel B={EVAL_ENVS * pop} "
+        f"with_ee {kE:.3f} ms x {cfg.iters} (bound {boundE[0]:.4f} ms), exec "
+        f"step kernel B={EVAL_ENVS} {kx:.3f} ms; rest "
+        f"{ev - cfg.iters * kE - kx:.3f} ms; {card()}")
+    record("mpc_timing", {
+        "replan_ms": replan, "replan_host_ms": replan_host,
+        "preview_kernel_ms_B1024": k1, "preview_bound_ms_B1024": bound1[0],
+        "replan_glue_ms": glue, "eval_step_ms": ev,
+        "eval_step_host_ms": ev_host, "preview_kernel_ms_B4096": kE,
+        "preview_bound_ms_B4096": boundE[0], "exec_step_kernel_ms_B4": kx})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -665,6 +1018,11 @@ def main():
     launches, kernel_out = main_path_phase(m, dev, states, acts)
     horizon_twin_phase(m, dev, states, acts, kernel_out)
     times = timing_phase(m, dev)
+    preview_phase(dev)
+    mpc_twin_phase(dev)
+    p = mpc_path_inputs(dev)
+    mpc_launches = mpc_path_phase(dev, p)
+    mpc_timing_phase(dev, p)
 
     # the bound of each kernel at the shape it was timed at (B=4096, the
     # rollout at H=2); no single PyTorch call computes the fused step
@@ -677,8 +1035,12 @@ def main():
         f"({main_bound[1]}), {100 * main_bound[0] / RESULTS['main_path']['ms']:.2f}"
         " % of it")
     record("bounds", {k: {"ms": v[0], "by": v[1]} for k, v in bounds.items()})
+    # launches: the main path's run plus the MPC path's run
     kernels = [{"name": f"fused_step.{k}", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": launches[k],
+                "replaces": REPLACES[k],
+                "launches": launches[k] + mpc_launches[k],
+                "launches_by_path": {"main": launches[k],
+                                     "mpc": mpc_launches[k]},
                 "max_abs_err": errs[k], "ms": times[k][0],
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}

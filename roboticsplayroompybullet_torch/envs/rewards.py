@@ -31,10 +31,11 @@ def play_success(cfg: EnvConfig, ag: torch.Tensor, g: torch.Tensor):
         ag_rpy = sp.quat_to_euler(sp.quat_normalize(ag[..., idx + 3:idx + 7]))
         ok = ok & (torch.abs(g_rpy - ag_rpy) <= math.pi / 4).all(-1)
         idx += 7
-    thresholds = torch.tensor([0.025, 0.04, 0.01, 0.3], dtype=torch.float32,
-                              device=ag.device)
+    # scalar thresholds: a tensor of them would be a host-to-device copy,
+    # which waits for the card, on every call
     d = torch.abs(g[..., idx:idx + 4] - ag[..., idx:idx + 4])
-    ok = ok & (d <= thresholds).all(-1)
+    for j, thresh in enumerate((0.025, 0.04, 0.01, 0.3)):
+        ok = ok & (d[..., j] <= thresh)
     return torch.where(ok, 0.0, -1.0)
 
 

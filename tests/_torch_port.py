@@ -5,6 +5,7 @@ The JAX outputs the port is held to come from committed fixtures
 port test compiles the JAX lane twin. Each fixture records the sha256 of
 the JAX sources it depends on; `load` refuses a stale one.
 """
+import functools
 import hashlib
 import json
 import os
@@ -43,3 +44,60 @@ def field_slices(cfg, tree):
             out.append((name, slice(i, i + r)))
         i += r
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def flagship_step12():
+    """(step12 fixture, reset fixture, the port's state after the step): the
+    fixture's control step (control + 12 substeps) through
+    make_fused_batched_step on the plain twin, once per process. The lane
+    and rollout tests both hold it to the JAX step."""
+    import torch
+    from roboticsplayroompybullet_torch import interop
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.parallel import fused as F
+    z = load("step12_UR5PlayAbsRPY1Obj")
+    d = load("reset_UR5PlayAbsRPY1Obj")
+    m = core.build_model(CATALOG["UR5PlayAbsRPY1Obj-v0"])
+    st = fs.unpack_state(m.cfg, m.tree, torch.tensor(z["X"]),
+                         interop.state_from_numpy(d, device="cpu"))
+    with torch.no_grad():
+        out = F.make_fused_batched_step(m)(st, torch.tensor(z["actions"].T))
+    return z, d, out
+
+
+def mpc_step_cost(cfg, w):
+    """The cost_fn of the MPC step fixture (tools/gen_port_fixtures.py::
+    mpc_step_cost), batched over (env, pop): trajectory_cost plus
+    cost_params["reach"] (one weight per env) times the summed ee-to-block
+    distance, read from the with_ee tail of the preview ags."""
+    import torch
+    from roboticsplayroompybullet_torch.solver import cost
+
+    def cost_fn(ags, goals, acts, params):
+        reach = torch.linalg.vector_norm(ags[..., -3:] - ags[..., 0:3],
+                                         dim=-1).sum(-1)
+        return (cost.trajectory_cost(cfg, ags, goals, acts, w)
+                + params["reach"][:, None] * reach)
+    return cost_fn
+
+
+def zero_state(cfg, tree, B, device="cpu"):
+    """An EnvState of B envs, every field zero (t, rng and has_prev of
+    their dtypes): the template that fs.unpack_state fills from packed
+    rows."""
+    import torch
+    from roboticsplayroompybullet_torch.envs.state import EnvState
+    no = max(cfg.num_objects, 1)
+    z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
+    return EnvState(
+        q=z(B, tree.n_dof), qd=z(B, tree.n_dof), ctrl_q=z(B, cfg.n_arm),
+        grip=z(B), obj_pos=z(B, no, 3), obj_quat=z(B, no, 4),
+        obj_vel=z(B, no, 3), obj_angvel=z(B, no, 3), art_q=z(B, 4),
+        art_qd=z(B, 4), goal=z(B, cfg.goal_dim), prev_obs=z(B, cfg.obs_dim),
+        prev_ag=z(B, cfg.ag_dim),
+        has_prev=torch.zeros(B, dtype=torch.bool, device=device),
+        rng=torch.zeros((B, 2), dtype=torch.int64, device=device),
+        t=torch.zeros(B, dtype=torch.int32, device=device))

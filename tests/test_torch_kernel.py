@@ -78,9 +78,10 @@ def _tiled(z, B, dev):
                          device=dev) for k in ("X", "ctrl", "grip")]
 
 
-@pytest.mark.parametrize("B", [37, 4097])
+@pytest.mark.parametrize("B", [1, 4, 37, 4097])
 def test_kernels_match_plain_on_tail_and_multi_wave_batches(cuda, B):
-    """B=37 leaves a part-filled block; B=4097 needs several waves of
+    """B=1 and B=4 are the MPC loops' executed steps (one block, part
+    filled); B=37 leaves a part-filled block; B=4097 needs several waves of
     blocks and leaves one env in the last block."""
     env_id = "UR5PlayAbsRPY1Obj-v0"
     z = tp.load(f"sim3_{tp.key(env_id)}")

@@ -27,7 +27,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "roboticsplayroompybullet_torch.ops.fused_step" in mods
+    for name in ("ops.fused_step", "solver.mpc", "solver.cost", "envs.obs"):
+        assert f"roboticsplayroompybullet_torch.{name}" in mods, name
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

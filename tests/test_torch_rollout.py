@@ -5,13 +5,9 @@ make_fused_rollout_whole(backend="reference") (committed fixtures)."""
 import dataclasses
 import functools
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-from roboticsplayroompybullet_tpu.envs import rewards as jrewards
-from roboticsplayroompybullet_tpu.envs.config import CATALOG as JCATALOG
 
 from roboticsplayroompybullet_torch import interop
 from roboticsplayroompybullet_torch.envs import core, rewards
@@ -103,14 +99,8 @@ def test_per_step_rollout_equals_whole_horizon():
 def test_batched_step_matches_jax():
     """EnvState-level control step (make_fused_batched_step, the executed
     env step) against the JAX 12-substep step, test_fused.py:114-122."""
-    env_id = "UR5PlayAbsRPY1Obj-v0"
-    z = tp.load(f"step12_{tp.key(env_id)}")
-    d = tp.load(f"reset_{tp.key(env_id)}")
-    m = core.build_model(CATALOG[env_id])
-    st = fs.unpack_state(m.cfg, m.tree, torch.tensor(z["X"]),
-                         interop.state_from_numpy(d, device="cpu"))
-    with torch.no_grad():
-        out = F.make_fused_batched_step(m)(st, torch.tensor(z["actions"].T))
+    z, d, out = tp.flagship_step12()
+    m = core.build_model(CATALOG["UR5PlayAbsRPY1Obj-v0"])
     X2 = fs.pack_state(m.cfg, m.tree, out).numpy()
     sl = dict(tp.field_slices(m.cfg, m.tree))
     for f in ("q", "obj_pos", "obj_quat"):
@@ -127,20 +117,11 @@ def test_batched_step_matches_jax():
 def test_rewards_match_jax(env_id):
     """Play success, sparse and dense rewards on random goals near ags."""
     cfg = CATALOG[env_id]
-    rs = np.random.RandomState(4)
-    ag = rs.uniform(-0.3, 0.3, (64, 3, cfg.ag_dim)).astype(np.float32)
-    g = (ag[:, :1] + rs.uniform(-0.06, 0.06, (64, 1, cfg.ag_dim))
-         ).astype(np.float32)
-    if not cfg.play:
-        g = g[..., :3 * cfg.num_goals]
-    ref = np.asarray(jrewards.compute_reward(JCATALOG[env_id],
-                                             jnp.asarray(ag), jnp.asarray(g)))
-    ours = rewards.compute_reward(cfg, torch.tensor(ag),
-                                  torch.tensor(g)).numpy()
-    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
-    dense = rewards.dense_reward(torch.tensor(ag), torch.tensor(ag) * 0.5)
-    np.testing.assert_allclose(
-        dense.numpy(),
-        np.asarray(jrewards.dense_reward(jnp.asarray(ag),
-                                         jnp.asarray(ag) * 0.5)),
-        rtol=1e-6, atol=1e-7)
+    z = tp.load("rewards")
+    k = tp.key(env_id)
+    ag, g = torch.tensor(z[f"{k}_ag"]), torch.tensor(z[f"{k}_goal"])
+    ours = rewards.compute_reward(cfg, ag, g).numpy()
+    np.testing.assert_allclose(ours, z[f"{k}_reward"], rtol=0, atol=1e-6)
+    dense = rewards.dense_reward(ag, ag * 0.5)
+    np.testing.assert_allclose(dense.numpy(), z[f"{k}_dense"], rtol=1e-6,
+                               atol=1e-7)

@@ -17,8 +17,9 @@ of them changes.
     python tools/gen_port_fixtures.py --only sim3_UR5Reach step12
 
 All inputs come from numpy seeds, except the UR5PlayAbsRPY1Obj start states,
-which are a jitted batched_reset (the port has no reset yet). Every fixture
-is B=128.
+which are a jitted batched_reset (the port has no reset yet), and the MPC
+normals, which jax.random draws and the fixture stores. The physics fixtures
+are B=128; the MPC ones (mpc_*) are as small as their cases allow.
 """
 from __future__ import annotations
 
@@ -63,7 +64,12 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/ops/lane.py",
      "roboticsplayroompybullet_tpu/envs/config.py",
      "roboticsplayroompybullet_tpu/envs/rewards.py",
-     "roboticsplayroompybullet_tpu/parallel/fused.py"]
+     "roboticsplayroompybullet_tpu/parallel/fused.py",
+     "roboticsplayroompybullet_tpu/solver/cost.py",
+     "roboticsplayroompybullet_tpu/solver/mpc.py",
+     "roboticsplayroompybullet_tpu/envs/obs.py",
+     "roboticsplayroompybullet_tpu/ops/dynamics.py",
+     "roboticsplayroompybullet_tpu/ops/spatial.py"]
     + [os.path.relpath(p, ROOT) for p in glob.glob(
         os.path.join(ROOT, "roboticsplayroompybullet_tpu/models/*.py"))])
 
@@ -257,6 +263,32 @@ def make_step12():
     _save(f"step12_{_key(FLAGSHIP)}", X=X, actions=acts, X_out=X2)
 
 
+REWARD_ENVS = (FLAGSHIP, "pandaPlay-v0", "pandaPick-v0", "UR5Reach-v0")
+
+
+def make_rewards():
+    """compute_reward (play success, sparse, dense) on random goals near
+    the ags, and dense_reward, for one env of each reward family."""
+    from roboticsplayroompybullet_tpu.envs import rewards as jr
+    out = {}
+    for env_id in REWARD_ENVS:
+        cfg = CATALOG[env_id]
+        rs = np.random.RandomState(4)
+        ag = rs.uniform(-0.3, 0.3, (64, 3, cfg.ag_dim)).astype(np.float32)
+        g = (ag[:, :1] + rs.uniform(-0.06, 0.06, (64, 1, cfg.ag_dim))
+             ).astype(np.float32)
+        if not cfg.play:
+            g = g[..., :3 * cfg.num_goals]
+        k = _key(env_id)
+        out.update({
+            f"{k}_ag": ag, f"{k}_goal": g,
+            f"{k}_reward": jr.compute_reward(cfg, jnp.asarray(ag),
+                                             jnp.asarray(g)),
+            f"{k}_dense": jr.dense_reward(jnp.asarray(ag),
+                                          jnp.asarray(ag) * 0.5)})
+    _save("rewards", **out)
+
+
 def make_rollout(env_id: str, H: int, n_substeps):
     cfg = CATALOG[env_id]
     m = core.build_model(cfg)
@@ -273,9 +305,168 @@ def make_rollout(env_id: str, H: int, n_substeps):
           n_substeps=np.int32(n_substeps or cfg.substeps), **out)
 
 
+# ---------------------------------------------------------------------------
+# the MPC solver (solver/cost.py, solver/mpc.py), eager except the MPC step
+# ---------------------------------------------------------------------------
+
+# (name, env, use_orientation override): play with one and two blocks, the
+# object layout with a stride of 3 and of 7, and reach
+COST_CASES = (("play1", FLAGSHIP, None), ("play2", "pandaPlay-v0", None),
+              ("obj", "pandaPick-v0", None), ("obj_orn", "pandaPick-v0", True),
+              ("reach", "UR5Reach-v0", None))
+# one env per branch of init_plan_from_state
+INIT_ENVS = (FLAGSHIP, "UR5Reach-v0", "pandaPlay1Obj-v0",
+             "UR5PlayAbsJoints1Obj-v0", "UR5PlayRelRPY1Obj-v0")
+MPC_STEP = dict(n_envs=2, horizon=2, pop=64, iters=2, n_substeps=1)
+
+
+def _mpc():
+    from roboticsplayroompybullet_tpu import solver as sol
+    from roboticsplayroompybullet_tpu.solver import mpc
+    return sol, mpc
+
+
+def make_mpc_cost():
+    """goal_distance / trajectory_cost on every goal layout: (n, H, ag)
+    achieved goals near the goal, a third of them with the block quats
+    equal to the goal's (the arccos clip)."""
+    sol, _ = _mpc()
+    out = {}
+    n, H = 16, 4
+    for name, env_id, orn in COST_CASES:
+        cfg = CATALOG[env_id]
+        if orn is not None:
+            cfg = dataclasses.replace(cfg, use_orientation=orn)
+        rs = np.random.RandomState(len(out))
+        ag_dim = cfg.ag_dim
+        g = rs.uniform(-0.3, 0.3, (n, cfg.goal_dim)).astype(np.float32)
+        ag = rs.uniform(-0.3, 0.3, (n, H, ag_dim)).astype(np.float32)
+        if cfg.play:
+            ag = (np.broadcast_to(g[:, None], ag.shape)
+                  + rs.uniform(-0.05, 0.05, ag.shape)).astype(np.float32)
+            for o in range(cfg.num_objects):
+                sl = slice(7 * o + 3, 7 * o + 7)
+                ag[: n // 3, :, sl] = g[: n // 3, None, sl]
+        acts = rs.uniform(-1, 1, (n, H, cfg.action_dim)).astype(np.float32)
+        w = sol.CostWeights()
+        d = sol.goal_distance(cfg, jnp.asarray(ag), jnp.asarray(g)[:, None], w)
+        c = jax.vmap(lambda a_, g_, u_: sol.trajectory_cost(
+            cfg, a_, g_, u_, w))(jnp.asarray(ag), jnp.asarray(g),
+                                 jnp.asarray(acts))
+        out.update({f"{name}_ag": ag, f"{name}_goal": g, f"{name}_acts": acts,
+                    f"{name}_dist": d, f"{name}_cost": c})
+    _save("mpc_cost", **out)
+
+
+def make_mpc_init():
+    """init_plan_from_state for each action mode, on 8 start states."""
+    _, mpc = _mpc()
+    cfg_mpc = mpc.MPCConfig(horizon=3)
+    out = {}
+    for env_id in INIT_ENVS:
+        m = core.build_model(CATALOG[env_id])
+        d = {k: v[:8] for k, v in start_states(env_id, seed=13).items()}
+        pl = jax.vmap(lambda s: mpc.init_plan_from_state(m, cfg_mpc, s))(
+            _state_of(d))
+        k = _key(env_id)
+        out.update({f"{k}_q": d["q"], f"{k}_qd": d["qd"],
+                    f"{k}_mean": pl.mean, f"{k}_sigma": pl.sigma})
+    _save("mpc_init", horizon=np.int32(cfg_mpc.horizon), **out)
+
+
+def make_mpc_sample():
+    """_sample's AR(1)/clip transform on the normals jax.random draws from a
+    fixed key; means near the bounds so the clip engages."""
+    _, mpc = _mpc()
+    cfg = mpc.MPCConfig()
+    high = np.asarray(CATALOG[FLAGSHIP].action_high, np.float32)
+    rs = np.random.RandomState(14)
+    n, H = 32, 5
+    mean = (rs.uniform(-0.95, 0.95, (H, len(high))) * high).astype(np.float32)
+    sigma = rs.uniform(0.1, 1.5, (H, len(high))).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    noise = jax.random.normal(key, (n, H, len(high)), jnp.float32)
+    acts = mpc._sample(key, mpc.PlanState(jnp.asarray(mean),
+                                          jnp.asarray(sigma)),
+                       cfg, n, jnp.asarray(high))
+    _save("mpc_sample", mean=mean, sigma=sigma, high=high, noise=noise,
+          actions=acts, smooth=np.float32(cfg.smooth))
+
+
+def make_mpc_update():
+    """_mppi_update / _cem_update on fixed actions and costs, two envs;
+    the costs are rounded to 0.1 so that CEM's k-th cost has ties."""
+    _, mpc = _mpc()
+    cfg = mpc.MPCConfig(pop=64)
+    rs = np.random.RandomState(15)
+    E, H, A = 2, 4, 7
+    acts = rs.uniform(-1, 1, (E, cfg.pop, H, A)).astype(np.float32)
+    costs = (np.round(rs.uniform(0, 2, (E, cfg.pop)) * 10) / 10
+             ).astype(np.float32)
+    mean = rs.uniform(-1, 1, (E, H, A)).astype(np.float32)
+    sigma = rs.uniform(0.1, 0.5, (E, H, A)).astype(np.float32)
+    out = {}
+    for name, fn in (("mppi", mpc._mppi_update), ("cem", mpc._cem_update)):
+        pl = jax.vmap(lambda mu, s, a, c: fn(mpc.PlanState(mu, s), cfg, a, c,
+                                              None))(
+            jnp.asarray(mean), jnp.asarray(sigma), jnp.asarray(acts),
+            jnp.asarray(costs))
+        out.update({f"{name}_mean": pl.mean, f"{name}_sigma": pl.sigma})
+    _save("mpc_update", actions=acts, costs=costs, mean=mean, sigma=sigma,
+          pop=np.int32(cfg.pop), elite_frac=np.float32(cfg.elite_frac),
+          **out)
+
+
+def mpc_step_cost(sol, cfg, w):
+    """The MPC step fixture's cost_fn: trajectory_cost plus a per-env
+    weight (cost_params["reach"]) times the summed ee-to-block distance,
+    read from the with_ee tail of the preview ags."""
+    def cost(ag1, g1, a1, p1):
+        reach = jnp.sum(jnp.linalg.norm(ag1[:, -3:] - ag1[:, 0:3], axis=-1))
+        return sol.trajectory_cost(cfg, ag1, g1, a1, w) + p1["reach"] * reach
+    return cost
+
+
+def make_mpc_step():
+    """One make_batched_fused_mpc_step(backend="reference") on the flagship
+    (MPC_STEP: 2 envs x 64 candidates, H=2, 2 iterations, 1 substep), with
+    with_ee and a cost_fn that reads the ee tail and cost_params. The
+    normals each iteration draws are stored so the port can use them."""
+    sol, mpc = _mpc()
+    m = core.build_model(CATALOG[FLAGSHIP])
+    E, H, pop, iters = (MPC_STEP[k] for k in ("n_envs", "horizon", "pop",
+                                              "iters"))
+    cfg = mpc.MPCConfig(horizon=H, pop=pop, iters=iters, algorithm="mppi",
+                        sigma_init=0.3)
+    d = {k: v[:E] for k, v in noised(flagship_reset(), m, 21).items()}
+    st = _state_of(d)
+    plans = mpc.init_batched_plan(m, cfg, E, st)
+    params = {"reach": jnp.asarray([0.5, 1.0], jnp.float32)}
+    step = mpc.make_batched_fused_mpc_step(
+        m, cfg, E, backend="reference", n_substeps=MPC_STEP["n_substeps"],
+        cost_fn=mpc_step_cost(sol, m.cfg, cfg.weights), with_ee=True)
+    key = jax.random.PRNGKey(8)
+    A = m.cfg.action_dim
+    normals = np.stack([np.stack([
+        np.asarray(jax.random.normal(kk, (pop, H, A), jnp.float32))
+        for kk in jax.random.split(k, E)])
+        for k in jax.random.split(key, iters)])       # (iters, E, pop, H, A)
+    st2, pl2, rew, ags = jax.jit(step)(st, plans, key, params)
+    out = {f"in_{k}": v for k, v in d.items()}
+    out.update({f"out_{k}": v for k, v in _state_dict(st2).items()})
+    _save(f"mpc_step_{_key(FLAGSHIP)}", normals=normals,
+          plan_mean=plans.mean, plan_sigma=plans.sigma, reach=params["reach"],
+          out_mean=pl2.mean, out_sigma=pl2.sigma, rewards=rew, ags=ags,
+          sigma_init=np.float32(cfg.sigma_init),
+          **{k: np.int32(v) for k, v in MPC_STEP.items()}, **out)
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
-           f"step12_{_key(FLAGSHIP)}": make_step12}
+           f"step12_{_key(FLAGSHIP)}": make_step12, "rewards": make_rewards,
+           "mpc_cost": make_mpc_cost, "mpc_init": make_mpc_init,
+           "mpc_sample": make_mpc_sample, "mpc_update": make_mpc_update,
+           f"mpc_step_{_key(FLAGSHIP)}": make_mpc_step}
     for e in SIM3_ENVS:
         out[f"sim3_{_key(e)}"] = (lambda e=e: make_sim3(e))
     for e in CONTROL_ENVS:
