@@ -16,14 +16,18 @@ scaling, and the rollout's split into Jacobi sweeps / IK / the rest.
 Then the MPC slice (solver/mpc.py): the planners' preview model (ik 8 /
 solve 8, with_ee) against the plain twin, one batched MPC step through the
 kernels against the plain twin and against the JAX fixture, the MPC path
-(an eval control step at 4 envs x 1024 candidates and the UR5Reach closed
-loop, which must close the EE-goal distance below 0.75 of its start in 20
-steps) with its launch counts, and its times: ms per replan (pop=1024,
-H=10, 2 iterations) beside the preview kernel's, ms per eval control step
-split into previews and the executed step.
+(a flagship replan at 1024 candidates, an eval control step at 4 envs x
+1024 and the UR5Reach closed loop, which must close the EE-goal distance
+below 0.75 of its start in 20 steps) with its launch counts, each of its
+kernel launches held to the plain twin at the path's own shapes and
+inputs (the H=10 previews step by step, the B=4 and B=1 executed steps),
+and its times: ms per replan (pop=1024, H=10, 2 iterations) beside the
+preview kernel's, ms per eval control step split into previews and the
+executed step.
 Every phase prints its numbers; any failure raises and the
-script exits non-zero without a result line. About 12 minutes on one
-H100, most of it the plain twin's eager steps (the H=40 check takes 40).
+script exits non-zero without a result line. About 14 minutes on one
+H100, most of it the plain twin's eager steps (the H=40 check takes 40,
+the H=10 previews 20).
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
 `launches` adds the main path's and the MPC path's counts), then
@@ -31,6 +35,7 @@ The last two lines are one JSON object per kernel ({"kernels": [...]};
 card the script exits with code 2.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -286,9 +291,11 @@ def bound_ms(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(fn, reps):
-    """Mean device ms per call over `reps` calls, after one warm-up call."""
-    fn()
+def time_ms(fn, reps, warm=True):
+    """Mean device ms per call over `reps` calls, after one warm-up call
+    unless `warm` is false."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -302,7 +309,9 @@ def time_ms(fn, reps):
 
 def twin_phase(m, dev):
     """Kernel vs plain PyTorch twin on the card, per field, at the main
-    path's batch (B=4096; the rollout at H=2)."""
+    path's batch (B=4096; the rollout at H=2). Returns each kernel's max
+    error, the inputs, and the device ms of each plain call (the first
+    plain time of timing_phase's pairs)."""
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     cfg, tree = m.cfg, m.tree
     B = 4096
@@ -310,9 +319,21 @@ def twin_phase(m, dev):
     X = fs.pack_state(cfg, tree, st)
     ctrl = st.ctrl_q.T.contiguous()
     grip = st.grip.contiguous()
+    plain = {}
+
+    def timed(name, fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        plain[name] = e0.elapsed_time(e1)
+        return out
+
     with torch.no_grad():
         k = fs.make_cuda_sim(*m)(X, ctrl, grip)
-        p = fs.make_reference_sim(*m)(X, ctrl, grip)
+        p = timed("sim", lambda: fs.make_reference_sim(*m)(X, ctrl, grip))
     torch.cuda.synchronize()
     err = {"sim": check_fields(f"twin sim 12 substeps B={B}",
                                field_diffs(cfg, tree, k, p))}
@@ -324,13 +345,12 @@ def twin_phase(m, dev):
     with torch.no_grad():
         step_k = fs.make_cuda_step(*m)
         ks = step_k(X, acts[0])
-        ps = fs.make_reference_step(*m)(X, acts[0])
-        torch.cuda.synchronize()
+        ps = timed("step", lambda: fs.make_reference_step(*m)(X, acts[0]))
         err["step"] = check_fields(f"twin step B={B}",
                                    field_diffs(cfg, tree, ks, ps))
         kr, kag = fs.make_cuda_rollout(*m, horizon=H)(X, acts)
-        pr, pag = fs.make_reference_rollout(*m, horizon=H)(X, acts)
-        torch.cuda.synchronize()
+        pr, pag = timed("rollout", lambda: fs.make_reference_rollout(
+            *m, horizon=H)(X, acts))
         e = check_fields(f"twin rollout H=2 B={B}",
                          field_diffs(cfg, tree, kr, pr))
         dag = (kag - pag).abs()
@@ -352,7 +372,7 @@ def twin_phase(m, dev):
         record("rollout_vs_steps_max", d)
         if d > 1e-5:
             raise AssertionError("rollout kernel != repeated step kernel")
-    return err
+    return err, (X, ctrl, grip, acts), plain
 
 
 def jax_parity_phase(dev):
@@ -482,6 +502,35 @@ def main_path_phase(m, dev, states, acts):
     return launches, (fin, rew, ags)
 
 
+def position_rows(cfg, tree, dev):
+    """(NF,) bool: which packed rows hold a position-like field."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    rows, _ = fs._field_rows(cfg, tree)
+    return torch.tensor([n in POSITION_FIELDS for n, r in rows
+                         for _ in range(r)], device=dev)
+
+
+def env_error(A, B, pos_rows):
+    """(B,) each env's largest |A - B| over its rows, each row over its
+    one-step bound (POS_MAX for positions, VEL_MAX for velocities): above 1
+    is outside the one-step bounds."""
+    lim = pos_rows.to(torch.float64) * (POS_MAX - VEL_MAX) + VEL_MAX
+    return ((A - B).abs() / lim[:, None]).amax(0)
+
+
+def judge_step(cfg, tree, pos_rows, Xk, Yt):
+    """One teacher-forced step: the kernel's next state Xk against the plain
+    step Yt from the same state. Returns (per-field diffs, envs outside the
+    one-step bounds, worst position max, fields whose p99 is over its
+    one-step bound)."""
+    diffs = field_diffs(cfg, tree, Xk, Yt)
+    flips = int((env_error(Xk, Yt, pos_rows) > 1).sum())
+    pmax = max(v[0] for k, v in diffs.items() if k in POSITION_FIELDS)
+    over = [k for k, (_, p99) in diffs.items()
+            if p99 > (POS_MAX if k in POSITION_FIELDS else VEL_P99)]
+    return diffs, flips, pmax, over
+
+
 def horizon_twin_phase(m, dev, states, acts, kernel_out):
     """The rollout kernel at the main path's shape (B=4096, H=40).
 
@@ -513,9 +562,7 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
     step_k = fs.make_cuda_step(*m)
     step_p = fs.make_reference_step(*m)
     ag_of = fs.make_lane_ag(cfg, tree, m.arm)
-    rows, _ = fs._field_rows(cfg, tree)
-    pos_rows = torch.tensor([n in POSITION_FIELDS for n, r in rows
-                             for _ in range(r)], device=dev)
+    pos_rows = position_rows(cfg, tree, dev)
     bad, per_step = [], []
     with torch.no_grad():
         kr, kag = fs.make_cuda_rollout(*m, horizon=H)(X0, a)
@@ -526,13 +573,7 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
             Xk = step_k(Xk, a[h])
             dag = max(dag, float((kag[h] - ag_of(Xk)).abs().max()))
             ags_p.append(ag_of(Xf))
-            diffs = field_diffs(cfg, tree, Xk, Yt)
-            d = (Xk - Yt).abs()
-            flips = int(((d > POS_MAX) & pos_rows[:, None]
-                         | (d > VEL_MAX) & ~pos_rows[:, None]).any(0).sum())
-            pmax = max(v[0] for k, v in diffs.items() if k in POSITION_FIELDS)
-            over = [k for k, (_, p99) in diffs.items()
-                    if p99 > (POS_MAX if k in POSITION_FIELDS else VEL_P99)]
+            diffs, flips, pmax, over = judge_step(cfg, tree, pos_rows, Xk, Yt)
             if over or pmax >= ROLLOUT_MAX or flips > MAX_FLIPS:
                 bad.append((h + 1, over, pmax, flips))
             per_step.append({"flips": flips, "fields": {
@@ -591,19 +632,17 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
         raise AssertionError(f"{tag}: rewards differ from the plain twin's")
 
 
-def timing_phase(m, dev):
-    """Each kernel and its plain version at B=4096 (rollout at H=2), the
-    rollout kernel's batch scaling at H=40 and its split into Jacobi
-    sweeps / IK / the rest."""
+def timing_phase(m, dev, inputs, plain_first):
+    """Each kernel and its plain version at B=4096 (rollout at H=2) on the
+    twin phase's inputs, in turns: plain (the twin phase's check call),
+    kernel, kernel, plain (one cold call: the plain twin is host-bound, its
+    first call costs what a later one does); the rollout kernel's batch
+    scaling at H=40 and its split into Jacobi sweeps / IK / the rest."""
     from roboticsplayroompybullet_torch.ops import cuda_build
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     B, H = 4096, 2
-    st = flagship_states(B, dev, seed=5)
-    X = fs.pack_state(m.cfg, m.tree, st)
-    ctrl, grip = st.ctrl_q.T.contiguous(), st.grip.contiguous()
+    X, ctrl, grip, acts = inputs
     rs = np.random.RandomState(6)
-    acts = torch.tensor(rs.uniform(-0.25, 0.25, (H, m.cfg.action_dim, B)),
-                        dtype=torch.float32, device=dev)
     pairs = {
         "sim": (lambda f=fs.make_cuda_sim(*m): f(X, ctrl, grip),
                 lambda f=fs.make_reference_sim(*m): f(X, ctrl, grip)),
@@ -617,10 +656,10 @@ def timing_phase(m, dev):
     with torch.no_grad():
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain; the mean of each pair
-            p1 = time_ms(plain, 1)
+            p1 = plain_first[name]
             k1 = time_ms(kern, 3)
             k2 = time_ms(kern, 3)
-            p2 = time_ms(plain, 1)
+            p2 = time_ms(plain, 1, warm=False)
             out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
             say(f"[timing] {name} B={B}{' H=2' if name == 'rollout' else ''}"
                 f": kernel {out[name][0]:.3f} ms ({k1:.3f}, {k2:.3f}), "
@@ -669,9 +708,9 @@ PLAN_CFG = dict(horizon=10, pop=1024, iters=2, algorithm="mppi")
 EVAL_ENVS, EVAL_SIGMA = 4, 0.3
 CHAIN = 10                          # sequential replans timed in one chain
 REACH_ENVS, REACH_STEPS, REACH_SHRINK = 3, 20, 0.75  # test_solver.py:75-91
-# the closed loop refines by CEM (its elite sigma shrinks as the EE nears
-# the goal; MPPI keeps sigma_init, and its mean jitters by about that much)
-# from a plan that holds the start pose (init_plan_from_state)
+# the closed loop refines by CEM: its elite sigma shrinks as the EE nears
+# the goal, where MPPI keeps sigma_init and its mean jitters by about that
+# much (the port's loop is JAX's on the same draws: test_torch_mpc.py)
 REACH_CFG = dict(PLAN_CFG, algorithm="cem")
 PLAN_P99, PLAN_MAX = 1e-3, 5e-2     # plan means (tests/test_torch_mpc.py)
 
@@ -682,7 +721,11 @@ def preview_phase(dev):
     twin bounds and the ags (ee tail included) within POS_MAX, at B=1024,
     H=2 on the flagship and the 2-block pandaPlay. The actions are what the
     preview sees in a replan: candidates drawn by the planner's sampler
-    (sigma 0.3) about a plan that holds each env's pose."""
+    (sigma 0.3) about a plan that holds each env's pose. Then, printed and
+    recorded but not held: pandaPlay under uniform(-0.25, 0.25) actions
+    (absolute targets about the origin, random orientations), the kernel
+    against the plain twin beside the plain twin in float64 against itself
+    in float32 on the same inputs."""
     import _torch_port as tp
     from roboticsplayroompybullet_torch.envs import core
     from roboticsplayroompybullet_torch.envs.config import CATALOG
@@ -722,6 +765,26 @@ def preview_phase(dev):
         record(f"{tag} ags", {"max": dag, "ee_max": ee})
         if kag.shape != (2, ag_dim, B) or dag > POS_MAX:
             raise AssertionError(f"{tag}: ags differ from the plain twin's")
+
+    rs = np.random.RandomState(19)
+    acts = torch.tensor(rs.uniform(-0.25, 0.25, (2, m.cfg.action_dim, B)),
+                        dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        kr, _ = fs.make_cuda_rollout(*m, **kw)(X, acts)
+        ref = fs.make_reference_rollout(*m, **kw)
+        p32, _ = ref(X, acts)
+        p64, _ = ref(X.double(), acts.double())
+    torch.cuda.synchronize()
+    tag = f"preview pandaPlay-v0 H=2 B={B} uniform actions, not held"
+    row = {}
+    for name, (a, b) in (("kernel vs plain", (kr, p32)),
+                          ("plain f64 vs plain f32", (p64, p32)),
+                          ("kernel vs plain f64", (kr, p64))):
+        d = field_diffs(m.cfg, m.tree, a, b)
+        row[name] = {k: {"max": v[0], "p99": v[1]} for k, v in d.items()}
+        say(f"[{tag}] {name}: max " + ", ".join(
+            f"{k} {v[0]:.3e}" for k, v in d.items()) + f"; {card()}")
+    record(tag, row)
 
 
 def _mpc_compare(tag, m, got, want):
@@ -805,6 +868,183 @@ def mpc_twin_phase(dev):
     _mpc_compare("mpc step kernels vs JAX fixture, 2x64 H=2", m, got, want)
 
 
+@contextlib.contextmanager
+def first_calls():
+    """While open, each wrapper that fs.make_cuda_step / make_cuda_rollout
+    makes passes its calls through unchanged (the launch counts are its
+    own) and keeps its first call: yields the list of {entry, m, args, kw,
+    inputs} it appends to, one per wrapper, in the order of first calls."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    log, made = [], (fs.make_cuda_step, fs.make_cuda_rollout)
+
+    def keep(entry, make):
+        def mk(cfg, tree, arm, scene, *args, **kw):
+            f, first = make(cfg, tree, arm, scene, *args, **kw), []
+
+            def call(*xs):
+                if not first:
+                    first.append(True)
+                    log.append(dict(entry=entry, m=(cfg, tree, arm, scene),
+                                    args=args, kw=kw,
+                                    inputs=[x.clone() for x in xs]))
+                return f(*xs)
+            return call
+        return mk
+
+    fs.make_cuda_step = keep("step", made[0])
+    fs.make_cuda_rollout = keep("rollout", made[1])
+    try:
+        yield log
+    finally:
+        fs.make_cuda_step, fs.make_cuda_rollout = made
+
+
+def preview_horizon_check(m, kw, parts):
+    """parts: [(tag, X0 (NF, B), actions (H, A, B), with_ee)] of one model at
+    one fidelity kw (n_substeps, ik_iters, solve_iters), each through the
+    rollout kernel and held step by step as horizon_twin_phase holds the
+    H=40 rollout: the rollout kernel equals H step-kernel launches of the
+    same fidelity (state and ags, the latter against the plain ag of each
+    step's state, within 1e-5), and at every step the plain step from the
+    kernel's state agrees with the kernel's next state (each field's p99
+    within the one-step bounds, positions within ROLLOUT_MAX). An env
+    outside the one-step bounds is stepped again by the plain twin in
+    float64, and counts against the kernel only where the kernel is
+    farther from that step than the float32 plain step is (env_error): at
+    most MAX_FLIPS such envs a part and step. A population is a few start
+    states times many candidates, so an env near a branch (contact,
+    clamp) brings its candidates with it. The plain steps of all parts run
+    as one call a step."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    cfg, tree = m.cfg, m.tree
+    step_k = fs.make_cuda_step(*m, **kw)
+    step_p = fs.make_reference_step(*m, **kw)
+    pos_rows = position_rows(cfg, tree, parts[0][1].device)
+    H = parts[0][2].shape[0]
+    Bs = [X.shape[1] for _, X, _, _ in parts]
+    ag_of = [fs.make_lane_ag(cfg, tree, m.arm, ee) for *_, ee in parts]
+    worst = [dict(flips=0, against=0, ags=0.0, fields={}) for _ in parts]
+    bad, outside = [], []
+    with torch.no_grad():
+        runs = [fs.make_cuda_rollout(*m, H, with_ee=ee, **kw)(X, a)
+                for _, X, a, ee in parts]
+        Xk = [X for _, X, _, _ in parts]
+        for h in range(H):
+            Xin = list(Xk)
+            Y = torch.split(step_p(torch.cat(Xin, 1), torch.cat(
+                [a[h] for _, _, a, _ in parts], 1)), Bs, 1)
+            flagged = []
+            for j, (tag, _, a, _) in enumerate(parts):
+                Xk[j] = step_k(Xin[j], a[h])
+                w = worst[j]
+                w["ags"] = max(w["ags"], float(
+                    (runs[j][1][h] - ag_of[j](Xk[j])).abs().max()))
+                diffs, flips, pmax, over = judge_step(cfg, tree, pos_rows,
+                                                      Xk[j], Y[j])
+                w["flips"] = max(w["flips"], flips)
+                for k, (mx, p99) in diffs.items():
+                    o = w["fields"].get(k, (0.0, 0.0))
+                    w["fields"][k] = (max(o[0], mx), max(o[1], p99))
+                if over or pmax >= ROLLOUT_MAX:
+                    bad.append((tag, h + 1, over, pmax))
+                flagged.append(torch.nonzero(
+                    env_error(Xk[j], Y[j], pos_rows) > 1).flatten())
+            if sum(len(f) for f in flagged):
+                cat = lambda xs: torch.cat(  # noqa: E731
+                    [x[:, f] for x, f in zip(xs, flagged)], 1)
+                Y64 = step_p(cat(Xin).double(), cat(
+                    [a[h] for _, _, a, _ in parts]).double())
+                e_k = env_error(cat(Xk), Y64, pos_rows)
+                e_p = env_error(cat(Y), Y64, pos_rows)
+                n0 = 0
+                for j, f in enumerate(flagged):
+                    ek, ep = e_k[n0:n0 + len(f)], e_p[n0:n0 + len(f)]
+                    n0 += len(f)
+                    n = int((ek > ep).sum())
+                    worst[j]["against"] = max(worst[j]["against"], n)
+                    if len(f):
+                        outside.append({
+                            "part": parts[j][0], "step": h + 1,
+                            "envs": f.tolist(),
+                            "kernel_vs_plain": env_error(
+                                Xk[j][:, f], Y[j][:, f], pos_rows).tolist(),
+                            "kernel_vs_f64": ek.tolist(),
+                            "plain_vs_f64": ep.tolist()})
+                    if n > MAX_FLIPS:
+                        bad.append((parts[j][0], h + 1, n))
+        torch.cuda.synchronize()
+    for o in outside:
+        say(f"[{o['part']} teacher-forced] step {o['step']}: envs outside "
+            "the one-step bounds (env: kernel vs plain, kernel vs float64, "
+            "plain vs float64, in units of the bounds) " + ", ".join(
+                f"{e}: {a:.2f} {b:.2f} {c:.2f}" for e, a, b, c in zip(
+                    o["envs"], o["kernel_vs_plain"], o["kernel_vs_f64"],
+                    o["plain_vs_f64"])))
+    fails = []
+    for j, (tag, X, a, _) in enumerate(parts):
+        w = worst[j]
+        w["state"] = float((runs[j][0] - Xk[j]).abs().max())
+        f = w["fields"]
+        say(f"[{tag} teacher-forced] worst step: position max " + ", ".join(
+            f"{k} {f[k][0]:.2e}" for k in f if k in POSITION_FIELDS)
+            + f" (<{ROLLOUT_MAX:g}); p99 " + ", ".join(
+            f"{k} {v[1]:.2e}" for k, v in f.items())
+            + f" (positions <={POS_MAX:g}, velocities <={VEL_P99:g}); envs "
+            f"outside the one-step bounds max {w['flips']}, of them farther "
+            f"from the float64 step than the plain twin max {w['against']} "
+            f"(<={MAX_FLIPS}); rollout == {H} x step kernel: state max="
+            f"{w['state']:.3e}, ags max={w['ags']:.3e} (<=1e-5); {card()}")
+        record(f"{tag} teacher-forced", {
+            "fields": {k: {"max": v[0], "p99": v[1]} for k, v in f.items()},
+            "flips_max": w["flips"], "against_kernel_max": w["against"],
+            "outside": [o for o in outside if o["part"] == tag],
+            "rollout_vs_steps": {"state_max": w["state"],
+                                 "ags_max": w["ags"]}})
+        if w["state"] > 1e-5 or w["ags"] > 1e-5:
+            fails.append(f"{tag}: rollout kernel != {H} step-kernel launches")
+    if bad:
+        fails.append("steps outside the bounds (tag, step, fields, position"
+                     f" max) or (tag, step, envs against the kernel): {bad}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def mpc_shapes_phase(calls):
+    """The MPC path's kernels held at the path's own shapes, on its own
+    inputs (the first call of each kernel wrapper in mpc_path_phase,
+    `calls` {piece: first_calls log}): the preview rollouts (H=10, ik 8 /
+    solve 8: the flagship replan's B=1024 and the eval step's B=4096
+    with_ee in one plain call a step, the UR5Reach closed loop's B=1024)
+    by preview_horizon_check, and the executed steps (the eval step's B=4,
+    the closed loop's B=1) against the plain step at the twin bounds."""
+    from roboticsplayroompybullet_torch.envs.core import EnvModel
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    fid = ("n_substeps", "ik_iters", "solve_iters")
+    groups = {}
+    for piece, log in calls.items():
+        for c in log:
+            X, a = c["inputs"]
+            kw = {k: c["kw"].get(k) for k in fid if k in c["kw"]}
+            tag = (f"mpc path {piece} {c['entry']} kernel B={X.shape[1]}"
+                   + (f" H={a.shape[0]} ik {kw.get('ik_iters')} solve "
+                      f"{kw.get('solve_iters')}"
+                      + (" with_ee" if c["kw"].get("with_ee") else "")
+                      if c["entry"] == "rollout" else ""))
+            if c["entry"] == "step":
+                with torch.no_grad():
+                    k = fs.make_cuda_step(*c["m"], **kw)(X, a)
+                    p = fs.make_reference_step(*c["m"], **kw)(X, a)
+                torch.cuda.synchronize()
+                check_fields(tag, field_diffs(c["m"][0], c["m"][1], k, p))
+                say(f"[{tag}] {card()}")
+                continue
+            key = (id(c["m"][0]), tuple(sorted(kw.items())))
+            groups.setdefault(key, (c["m"], kw, []))[2].append(
+                (tag, X, a, bool(c["kw"].get("with_ee"))))
+    for m, kw, parts in groups.values():
+        preview_horizon_check(EnvModel(*m), kw, parts)
+
+
 def mpc_path_inputs(dev):
     """Models, configs, start states and plans of the MPC path: the
     flagship replan and eval step, the UR5Reach closed loop from the reach
@@ -834,41 +1074,49 @@ def mpc_path_inputs(dev):
 
 
 def mpc_path_phase(dev, p):
-    """The MPC path, with the launch counts read around it: one eval
-    control step (4 envs x 1024 candidates) and the UR5Reach closed loop
-    (make_fused_mpc_rollout, REACH_CFG: 1024 candidates, H=10, 2 CEM
-    iterations, 20 steps, from a pose-holding plan) from each of the first
-    REACH_ENVS start states, each of which must end below REACH_SHRINK of
-    its start EE-goal distance. After the counts are read, the same loops
-    by MPPI from init_plan's zero mean (make_fused_mpc_rollout's default)
-    are printed beside them, not held to the bar."""
+    """The MPC path, with the launch counts read around it: one flagship
+    replan (make_fused_planner, PLAN_CFG), one eval control step (4 envs x
+    1024 candidates) and the UR5Reach closed loop (make_fused_mpc_rollout
+    from init_plan's zero mean, REACH_CFG: 1024 candidates, H=10, 2 CEM
+    iterations, 20 steps) from each of the first REACH_ENVS start states,
+    each of which must end below REACH_SHRINK of its start EE-goal
+    distance. Returns the counts and the first call of each kernel
+    wrapper of each piece (first_calls) for mpc_shapes_phase. After the
+    counts are read, the same loops by MPPI (PLAN_CFG, JAX's default) are
+    printed beside them, not held to the bar: the port's loop is JAX's
+    function of the draws (tests/test_torch_mpc.py::
+    test_closed_loop_matches_jax), so this is how JAX's MPPI fares too."""
     import _torch_port as tp
     from roboticsplayroompybullet_torch.envs.obs import achieved_goal
     from roboticsplayroompybullet_torch.envs.state import EnvState
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     from roboticsplayroompybullet_torch.solver import cost, mpc
     m, mr, cfg = p["m"], p["m_reach"], p["plan_cfg"]
+    planner = mpc.make_fused_planner(m, cfg)
     step = mpc.make_batched_fused_mpc_step(
         m, p["eval_cfg"], EVAL_ENVS, with_ee=True,
         cost_fn=tp.mpc_step_cost(m.cfg, p["eval_cfg"].weights))
-    rcfg = p["reach_cfg"]
-    run = mpc.make_fused_mpc_rollout(mr, rcfg, REACH_STEPS)
+    run = mpc.make_fused_mpc_rollout(mr, p["reach_cfg"], REACH_STEPS)
     dist = lambda s: cost.goal_distance(  # noqa: E731
         mr.cfg, achieved_goal(mr.cfg, mr.tree, mr.arm, s), s.goal)
+    starts = [EnvState(**{k: v[i:i + 1] for k, v in vars(p["reach"]).items()})
+              for i in range(REACH_ENVS)]
+    calls = {}
     fs.reset_launch_counts()
     with torch.no_grad():
-        st2, pl2, rs, ags = step(p["envs"], p["plans"],
-                                 torch.Generator(device=dev).manual_seed(14),
-                                 p["params"])
+        with first_calls() as calls["replan"]:
+            pl1, best1 = planner(p["one"], p["plan0"],
+                                 torch.Generator(device=dev).manual_seed(14))
+        with first_calls() as calls["eval"]:
+            st2, pl2, rs, ags = step(
+                p["envs"], p["plans"],
+                torch.Generator(device=dev).manual_seed(14), p["params"])
         loops = []
-        for i in range(REACH_ENVS):
-            s0 = EnvState(**{k: v[i:i + 1] for k, v in vars(p["reach"])
-                             .items()})
-            hold = mpc.PlanState(*(x[0] for x in mpc.init_plan_from_state(
-                mr, rcfg, s0)))
-            fin, acts, rws, bests = run(
-                s0, torch.Generator(device=dev).manual_seed(15 + i), hold)
-            loops.append((s0, fin, acts, bests))
+        with first_calls() as calls["closed loop"]:
+            for i, s0 in enumerate(starts):
+                fin, acts, rws, bests = run(
+                    s0, torch.Generator(device=dev).manual_seed(15 + i))
+                loops.append((fin, acts, bests))
     torch.cuda.synchronize()
     launches = dict(fs.LAUNCHES)
     say(f"[mpc path] launches {launches}")
@@ -876,29 +1124,34 @@ def mpc_path_phase(dev, p):
         if launches[k] < 1:
             raise AssertionError(f"the {k} kernel never launched")
     A = m.cfg.action_dim
+    high = torch.tensor(m.cfg.action_high, device=dev)
+    if (pl1.mean.shape != (cfg.horizon, A) or best1.shape != ()
+            or not bool(torch.isfinite(pl1.mean).all())
+            or not bool((pl1.mean.abs() <= high).all())):
+        raise AssertionError("mpc replan: wrong shapes, non-finite or "
+                             "outside the action bounds")
     if (st2.q.shape != p["envs"].q.shape or pl2.mean.shape != (
             EVAL_ENVS, cfg.horizon, A) or rs.shape != (EVAL_ENVS,)
             or not all(bool(torch.isfinite(t).all())
                        for t in (st2.q, st2.obj_pos, pl2.mean, ags))
             or not bool((st2.t == p["envs"].t + 1).all())):
         raise AssertionError("mpc eval step: wrong shapes, t or non-finite")
-    high = torch.tensor(m.cfg.action_high, device=dev)
     if not bool((pl2.mean.abs() <= high).all()):
         raise AssertionError("mpc eval step: plan outside the action bounds")
     res = []
-    for i, (s0, fin, acts, bests) in enumerate(loops):
+    for i, (s0, (fin, acts, bests)) in enumerate(zip(starts, loops)):
         d0, d1 = float(dist(s0)[0]), float(dist(fin)[0])
         ok = (d1 < REACH_SHRINK * d0 and bool(torch.isfinite(bests).all())
               and acts.shape == (REACH_STEPS, mr.cfg.action_dim))
-        say(f"[mpc closed loop] UR5Reach env {i}, CEM: EE-goal distance "
-            f"{d0:.4f} -> {d1:.4f} m in {REACH_STEPS} steps, ratio "
-            f"{d1 / d0:.3f} (<{REACH_SHRINK:g}) {'ok' if ok else 'FAIL'}; "
-            f"{card()}")
+        say(f"[mpc closed loop] UR5Reach env {i}, CEM from the zero mean: "
+            f"EE-goal distance {d0:.4f} -> {d1:.4f} m in {REACH_STEPS} "
+            f"steps, ratio {d1 / d0:.3f} (<{REACH_SHRINK:g}) "
+            f"{'ok' if ok else 'FAIL'}; {card()}")
         res.append({"d0": d0, "d1": d1})
         if not ok:
             raise AssertionError(f"closed loop env {i}: {d0} -> {d1}")
     mppi = mpc.make_fused_mpc_rollout(mr, cfg, REACH_STEPS)
-    for i, (s0, _, _, _) in enumerate(loops):
+    for i, s0 in enumerate(starts):
         with torch.no_grad():
             fin = mppi(s0, torch.Generator(device=dev).manual_seed(15 + i))[0]
         d0, d1 = float(dist(s0)[0]), float(dist(fin)[0])
@@ -907,7 +1160,7 @@ def mpc_path_phase(dev, p):
             "bar)")
         res[i]["mppi_d1"] = d1
     record("mpc_path", {"launches": launches, "closed_loop": res})
-    return launches
+    return launches, calls
 
 
 def _chain_ms(fn, reps):
@@ -1012,16 +1265,17 @@ def main():
     torch.manual_seed(0)
     build_phase()
     m = core.build_model(CATALOG[FLAGSHIP])
-    errs = twin_phase(m, dev)
+    errs, twin_inputs, plain_first = twin_phase(m, dev)
     jax_parity_phase(dev)
     states, acts = main_path_inputs(m, dev)
     launches, kernel_out = main_path_phase(m, dev, states, acts)
     horizon_twin_phase(m, dev, states, acts, kernel_out)
-    times = timing_phase(m, dev)
+    times = timing_phase(m, dev, twin_inputs, plain_first)
     preview_phase(dev)
     mpc_twin_phase(dev)
     p = mpc_path_inputs(dev)
-    mpc_launches = mpc_path_phase(dev, p)
+    mpc_launches, mpc_calls = mpc_path_phase(dev, p)
+    mpc_shapes_phase(mpc_calls)
     mpc_timing_phase(dev, p)
 
     # the bound of each kernel at the shape it was timed at (B=4096, the

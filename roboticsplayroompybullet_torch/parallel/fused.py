@@ -66,6 +66,19 @@ def _stepper(m: EnvModel, backend: str, ik_iters=None, solve_iters: int = 8,
                      backend)
 
 
+def _roller(m: EnvModel, horizon: int, backend: str, **kw):
+    """roll_B(X (NF, B), actions (H, A, B)) → (X', ags (H, ag_dim, B)): one
+    `rollout` launch for the whole horizon on CUDA tensors; kw are
+    make_cuda_rollout's fidelity options (n_substeps, ik_iters,
+    solve_iters, with_ee)."""
+    cfg, tree, arm, scene = m
+    return _dispatch(
+        lambda: fs.make_cuda_rollout(cfg, tree, arm, scene, horizon, **kw),
+        lambda: fs.make_reference_rollout(cfg, tree, arm, scene, horizon,
+                                          **kw),
+        backend)
+
+
 def make_fused_rollout(m: EnvModel, ik_iters=None, solve_iters: int = 8,
                        backend: str = "auto"):
     """(states (B,), actions (B, H, A)) → (final states, rewards (B, H),
@@ -113,14 +126,9 @@ def make_fused_rollout_whole(m: EnvModel, horizon: int, ik_iters=None,
     backend: "cuda" (the hand-written kernel), "reference" (the plain lane
     twin, on whatever device the tensors are), or "auto" (by the tensors'
     device). with_ee appends the ee world position to each per-step ag."""
-    cfg, tree, arm, scene = m
-    kw = dict(n_substeps=n_substeps, ik_iters=ik_iters,
-              solve_iters=solve_iters, with_ee=with_ee)
-    roll_B = _dispatch(
-        lambda: fs.make_cuda_rollout(cfg, tree, arm, scene, horizon, **kw),
-        lambda: fs.make_reference_rollout(cfg, tree, arm, scene, horizon,
-                                          **kw),
-        backend)
+    roll_B = _roller(m, horizon, backend, n_substeps=n_substeps,
+                     ik_iters=ik_iters, solve_iters=solve_iters,
+                     with_ee=with_ee)
 
     def rollout(states: EnvState, actions: torch.Tensor):
         if actions.shape[1] != horizon:

@@ -188,11 +188,9 @@ def _preview(m: EnvModel, cfg: MPCConfig, backend: str,
              n_substeps=None, with_ee: bool = False):
     """roll_B(X (NF, B), actions (H, A, B)) → (X', ags (H, ag_dim, B)) at the
     preview model's fidelity: one `rollout` launch on CUDA tensors."""
-    kw = dict(n_substeps=n_substeps, ik_iters=cfg.preview_ik_iters,
-              solve_iters=cfg.preview_solve_iters, with_ee=with_ee)
-    return _fused._dispatch(
-        lambda: fs.make_cuda_rollout(*m, cfg.horizon, **kw),
-        lambda: fs.make_reference_rollout(*m, cfg.horizon, **kw), backend)
+    return _fused._roller(m, cfg.horizon, backend, n_substeps=n_substeps,
+                          ik_iters=cfg.preview_ik_iters,
+                          solve_iters=cfg.preview_solve_iters, with_ee=with_ee)
 
 
 def _bounds(m: EnvModel, like: torch.Tensor) -> torch.Tensor:
@@ -288,17 +286,15 @@ def make_batched_fused_mpc_step(m: EnvModel, cfg: MPCConfig, n_envs: int,
 
 def make_fused_mpc_rollout(m: EnvModel, cfg: MPCConfig, n_steps: int,
                            backend: str = "auto"):
-    """Receding-horizon loop of one env: the fused planner, then one
-    parity-model control step (a `step` launch at B=1). Returns run(state,
-    gen, plan=None) → (final state, actions (T, A), rewards (T,), best
-    costs (T,)), state an EnvState of one env; the loop starts from `plan`
-    (H, A), by default init_plan's zero mean."""
+    """Receding-horizon loop of one env from init_plan's zero mean: the
+    fused planner, then one parity-model control step (a `step` launch at
+    B=1). Returns run(state, gen) → (final state, actions (T, A), rewards
+    (T,), best costs (T,)), state an EnvState of one env."""
     planner = make_fused_planner(m, cfg, backend=backend)
     step = _fused.make_fused_batched_step(m, backend=backend)
 
-    def run(state: EnvState, gen: torch.Generator,
-            plan: Optional[PlanState] = None):
-        pl = init_plan(m, cfg, device=state.q.device) if plan is None else plan
+    def run(state: EnvState, gen: torch.Generator):
+        pl = init_plan(m, cfg, device=state.q.device)
         acts, rs, bests = [], [], []
         for _ in range(n_steps):
             pl, best = planner(state, pl, gen)

@@ -5,7 +5,6 @@ The JAX outputs the port is held to come from committed fixtures
 port test compiles the JAX lane twin. Each fixture records the sha256 of
 the JAX sources it depends on; `load` refuses a stale one.
 """
-import functools
 import hashlib
 import json
 import os
@@ -44,28 +43,6 @@ def field_slices(cfg, tree):
             out.append((name, slice(i, i + r)))
         i += r
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def flagship_step12():
-    """(step12 fixture, reset fixture, the port's state after the step): the
-    fixture's control step (control + 12 substeps) through
-    make_fused_batched_step on the plain twin, once per process. The lane
-    and rollout tests both hold it to the JAX step."""
-    import torch
-    from roboticsplayroompybullet_torch import interop
-    from roboticsplayroompybullet_torch.envs import core
-    from roboticsplayroompybullet_torch.envs.config import CATALOG
-    from roboticsplayroompybullet_torch.ops import fused_step as fs
-    from roboticsplayroompybullet_torch.parallel import fused as F
-    z = load("step12_UR5PlayAbsRPY1Obj")
-    d = load("reset_UR5PlayAbsRPY1Obj")
-    m = core.build_model(CATALOG["UR5PlayAbsRPY1Obj-v0"])
-    st = fs.unpack_state(m.cfg, m.tree, torch.tensor(z["X"]),
-                         interop.state_from_numpy(d, device="cpu"))
-    with torch.no_grad():
-        out = F.make_fused_batched_step(m)(st, torch.tensor(z["actions"].T))
-    return z, d, out
 
 
 def mpc_step_cost(cfg, w):

@@ -57,12 +57,13 @@ def test_control_matches_jax(env_id):
 
 def test_full_step_matches_jax():
     """Whole control step (control + 12 substeps, 8 solve iterations) on the
-    flagship playroom (test_fused.py:114-122): make_reference_step, run
-    once per process through make_fused_batched_step's pack / unpack
-    (tp.flagship_step12, shared with test_torch_rollout.py)."""
-    z, _, out = tp.flagship_step12()
-    m = core.build_model(CATALOG["UR5PlayAbsRPY1Obj-v0"])
-    X2 = fs.pack_state(m.cfg, m.tree, out).numpy()
+    flagship playroom (test_fused.py:114-122)."""
+    env_id = "UR5PlayAbsRPY1Obj-v0"
+    z = tp.load(f"step12_{tp.key(env_id)}")
+    m = core.build_model(CATALOG[env_id])
+    step = fs.make_reference_step(*m)
+    with torch.no_grad():
+        X2 = step(torch.tensor(z["X"]), torch.tensor(z["actions"])).numpy()
     sl = dict(tp.field_slices(m.cfg, m.tree))
     for f in ("q", "obj_pos", "obj_quat"):
         np.testing.assert_allclose(X2[sl[f]], z["X_out"][sl[f]], rtol=0,

@@ -7,7 +7,8 @@ another order); the AR(1)/clip transform 1e-6 (the same float32 ops); the
 ee hold of init_plan_from_state 1e-4 (the lane FK against the JAX oracle's
 FK); the whole batched MPC step: states within tests/test_fused.py's 1e-4,
 plan means p99 <= 1e-3 and max <= 5e-2 (an IK fixed point that flips in one
-candidate moves its cost, and the MPPI weights with it).
+candidate moves its cost, and the MPPI weights with it); the closed loop
+likewise for its actions and final state, its best costs rtol 1e-4.
 """
 import dataclasses
 
@@ -166,6 +167,37 @@ def test_batched_mpc_step_matches_jax(monkeypatch):
     np.testing.assert_array_equal(st2.t.numpy(), z["out_t"])
     np.testing.assert_allclose(ags.numpy(), z["ags"], rtol=0, atol=1e-4)
     np.testing.assert_array_equal(rs.numpy(), z["rewards"])
+
+
+@pytest.mark.parametrize("algo", ["mppi", "cem"])
+def test_closed_loop_matches_jax(algo, monkeypatch):
+    """make_fused_mpc_rollout on the plain twin from init_plan's zero mean
+    (UR5Reach, 1 substep, 128 candidates, H=2, 2 iterations, 2 steps)
+    against JAX's loop on JAX's normals: the port's closed loop is JAX's
+    function of the draws."""
+    z = tp.load("mpc_loop_UR5Reach")
+    m = core.build_model(dataclasses.replace(
+        CATALOG["UR5Reach-v0"], substeps=int(z["n_substeps"])))
+    cfg = mpc.MPCConfig(horizon=int(z["horizon"]), pop=int(z["pop"]),
+                        iters=int(z["iters"]), algorithm=algo)
+    normals = iter(T(z["normals"]).flatten(0, 1))
+    monkeypatch.setattr(mpc, "_normals", lambda gen, shape, device:
+                        next(normals).reshape(shape))
+    st = interop.state_from_numpy(
+        {k[3:]: v[None] for k, v in z.items() if k.startswith("in_")}, "cpu")
+    with torch.no_grad():
+        fin, acts, rs, bests = mpc.make_fused_mpc_rollout(
+            m, cfg, int(z["n_steps"]))(st, torch.Generator())
+    assert next(normals, None) is None            # one draw per iteration
+    d = np.abs(acts.numpy() - z[f"{algo}_actions"])
+    assert np.quantile(d, 0.99) <= 1e-3 and d.max() <= 5e-2, d.max()
+    for f in ("q", "qd", "art_q", "art_qd"):
+        np.testing.assert_allclose(getattr(fin, f).numpy()[0],
+                                   z[f"{algo}_out_{f}"], rtol=0, atol=1e-4,
+                                   err_msg=f)
+    np.testing.assert_array_equal(fin.t.numpy()[0], z[f"{algo}_out_t"])
+    np.testing.assert_array_equal(rs.numpy(), z[f"{algo}_rewards"])
+    np.testing.assert_allclose(bests.numpy(), z[f"{algo}_bests"], rtol=1e-4)
 
 
 def test_planner_and_closed_loop_run_on_the_twin():

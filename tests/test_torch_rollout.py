@@ -99,8 +99,14 @@ def test_per_step_rollout_equals_whole_horizon():
 def test_batched_step_matches_jax():
     """EnvState-level control step (make_fused_batched_step, the executed
     env step) against the JAX 12-substep step, test_fused.py:114-122."""
-    z, d, out = tp.flagship_step12()
-    m = core.build_model(CATALOG["UR5PlayAbsRPY1Obj-v0"])
+    env_id = "UR5PlayAbsRPY1Obj-v0"
+    z = tp.load(f"step12_{tp.key(env_id)}")
+    d = tp.load(f"reset_{tp.key(env_id)}")
+    m = core.build_model(CATALOG[env_id])
+    st = fs.unpack_state(m.cfg, m.tree, torch.tensor(z["X"]),
+                         interop.state_from_numpy(d, device="cpu"))
+    with torch.no_grad():
+        out = F.make_fused_batched_step(m)(st, torch.tensor(z["actions"].T))
     X2 = fs.pack_state(m.cfg, m.tree, out).numpy()
     sl = dict(tp.field_slices(m.cfg, m.tree))
     for f in ("q", "obj_pos", "obj_quat"):

@@ -318,6 +318,8 @@ COST_CASES = (("play1", FLAGSHIP, None), ("play2", "pandaPlay-v0", None),
 INIT_ENVS = (FLAGSHIP, "UR5Reach-v0", "pandaPlay1Obj-v0",
              "UR5PlayAbsJoints1Obj-v0", "UR5PlayRelRPY1Obj-v0")
 MPC_STEP = dict(n_envs=2, horizon=2, pop=64, iters=2, n_substeps=1)
+# JAX's closed loop on UR5Reach, at a size the CPU runs in seconds
+MPC_LOOP = dict(horizon=2, pop=128, iters=2, n_steps=2, n_substeps=1)
 
 
 def _mpc():
@@ -461,12 +463,60 @@ def make_mpc_step():
           **{k: np.int32(v) for k, v in MPC_STEP.items()}, **out)
 
 
+def make_mpc_loop():
+    """JAX's make_fused_mpc_rollout on the first UR5Reach start state of the
+    rollout_UR5Reach fixture, from init_plan's zero mean, by MPPI and by
+    CEM, at MPC_LOOP's size (1 substep, so the CPU runs it in seconds). The
+    loop is built with its kernels swapped for their plain twins
+    (make_fused_rollout_whole with backend="reference", make_pallas_step →
+    make_reference_step, for the duration of the build; they compute the
+    same functions). The normals each replan iteration draws are stored,
+    so the port's loop can run on them."""
+    _, mpc = _mpc()
+    cfg = dataclasses.replace(CATALOG["UR5Reach-v0"],
+                              substeps=MPC_LOOP["n_substeps"])
+    m = core.build_model(cfg)
+    H, pop, iters, T = (MPC_LOOP[k] for k in ("horizon", "pop", "iters",
+                                              "n_steps"))
+    with np.load(os.path.join(OUT, "rollout_UR5Reach.npz")) as z:
+        d = {f: z[f"in_{f}"][0] for f in STATE_FIELDS}
+    key = jax.random.PRNGKey(9)
+    normals = np.stack([np.stack([
+        np.asarray(jax.random.normal(ki, (pop, H, cfg.action_dim),
+                                     jnp.float32))
+        for ki in jax.random.split(kt, iters)])
+        for kt in jax.random.split(key, T)])         # (T, iters, pop, H, A)
+    whole, pallas_step = F.make_fused_rollout_whole, fs.make_pallas_step
+    out = {f"in_{k}": v for k, v in d.items()}
+    for algo in ("mppi", "cem"):
+        F.make_fused_rollout_whole = (
+            lambda *a, **k: whole(*a, **dict(k, backend="reference")))
+        fs.make_pallas_step = (
+            lambda *a, block_envs=None, interpret=None, **k:
+            fs.make_reference_step(*a, **k))
+        try:
+            run = mpc.make_fused_mpc_rollout(
+                m, mpc.MPCConfig(horizon=H, pop=pop, iters=iters,
+                                 algorithm=algo), T)
+        finally:
+            F.make_fused_rollout_whole, fs.make_pallas_step = (
+                whole, pallas_step)
+        fin, acts, rews, bests = jax.jit(run)(_state_of(d), key)
+        out.update({f"{algo}_out_{k}": v
+                    for k, v in _state_dict(fin).items()})
+        out.update({f"{algo}_actions": acts, f"{algo}_rewards": rews,
+                    f"{algo}_bests": bests})
+    _save("mpc_loop_UR5Reach", normals=normals, **out,
+          **{k: np.int32(v) for k, v in MPC_LOOP.items()})
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
            f"step12_{_key(FLAGSHIP)}": make_step12, "rewards": make_rewards,
            "mpc_cost": make_mpc_cost, "mpc_init": make_mpc_init,
            "mpc_sample": make_mpc_sample, "mpc_update": make_mpc_update,
-           f"mpc_step_{_key(FLAGSHIP)}": make_mpc_step}
+           f"mpc_step_{_key(FLAGSHIP)}": make_mpc_step,
+           "mpc_loop_UR5Reach": make_mpc_loop}
     for e in SIM3_ENVS:
         out[f"sim3_{_key(e)}"] = (lambda e=e: make_sim3(e))
     for e in CONTROL_ENVS:
