@@ -24,13 +24,25 @@ inputs (the H=10 previews step by step, the B=4 and B=1 executed steps),
 and its times: ms per replan (pop=1024, H=10, 2 iterations) beside the
 preview kernel's, ms per eval control step split into previews and the
 executed step.
-Every phase prints its numbers; any failure raises and the
-script exits non-zero without a result line. About 14 minutes on one
-H100, most of it the plain twin's eager steps (the H=40 check takes 40,
-the H=10 previews 20).
+Then the env layer (envs/core.py, envs/wrapper.py, parallel/rollout.py):
+`[env golden]` replays the 19 goldens through PlayEnv on the card (the
+step kernel at B=1), free-running against the golden and teacher-forced
+against the JAX lane twin's replay (fixtures golden_lane_*); `[env reset]`
+runs batched_reset at B=4096 on the flagship and the 2-block pandaPlay
+(the settle is one sim-kernel launch of 100 substeps a placement
+attempt; one such launch is held to the plain twin) and the out-of-bounds
+re-place case at B=1024; `[env step]` steps BatchedEnv at B=4096 (one
+step held to the plain twin) and times it beside PlayEnv.step at B=1;
+`[mpc plan loop]` runs mpc_rollout on UR5Reach (the planner scoring at the
+env step's fidelity) and holds its kernel launches at their own shapes.
+Every phase prints its numbers and the env phases their time; any failure
+raises and the script exits non-zero without a result line. About 16
+minutes on one H100, most of it the plain twin's eager steps (the H=40
+check takes 40, the H=10 previews 20, the settle check 100 substeps).
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
-`launches` adds the main path's and the MPC path's counts), then
+`launches` adds the counts of the main path's, the MPC path's and the env
+paths' runs, `launches_by_path` splits them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
 """
@@ -518,6 +530,34 @@ def env_error(A, B, pos_rows):
     return ((A - B).abs() / lim[:, None]).amax(0)
 
 
+def replayed(fn, *example):
+    """The plain twin's fn (tensors in, a tensor out) captured as a CUDA
+    graph on inputs shaped as `example`: call(*xs) copies xs into the
+    captured inputs, replays the graph, and returns a copy of the output.
+    Eagerly the plain twin is host-bound (~10^5 small launches a control
+    step, 7-11 s on the card's host whatever the batch); replayed, the
+    same kernels on the same inputs run back to back, so a check that
+    steps the plain twin many times at one shape costs seconds, not
+    minutes. A warm-up call first makes the constants the twin caches
+    outside the capture."""
+    static = [x.clone() for x in example]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+
+    def call(*xs):
+        for dst, x in zip(static, xs):
+            dst.copy_(x)
+        graph.replay()
+        return out.clone()
+    return call
+
+
 def judge_step(cfg, tree, pos_rows, Xk, Yt):
     """One teacher-forced step: the kernel's next state Xk against the plain
     step Yt from the same state. Returns (per-field diffs, envs outside the
@@ -560,11 +600,12 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
     X0 = fs.pack_state(cfg, tree, states)
     a = acts.permute(1, 2, 0).contiguous()
     step_k = fs.make_cuda_step(*m)
-    step_p = fs.make_reference_step(*m)
     ag_of = fs.make_lane_ag(cfg, tree, m.arm)
     pos_rows = position_rows(cfg, tree, dev)
     bad, per_step = [], []
     with torch.no_grad():
+        step_p = replayed(fs.make_reference_step(*m),
+                          torch.cat([X0, X0], 1), torch.cat([a[0], a[0]], 1))
         kr, kag = fs.make_cuda_rollout(*m, horizon=H)(X0, a)
         Xk, Xf, dag, ags_p = X0, X0, 0.0, []
         for h in range(H):
@@ -713,6 +754,7 @@ REACH_ENVS, REACH_STEPS, REACH_SHRINK = 3, 20, 0.75  # test_solver.py:75-91
 # much (the port's loop is JAX's on the same draws: test_torch_mpc.py)
 REACH_CFG = dict(PLAN_CFG, algorithm="cem")
 PLAN_P99, PLAN_MAX = 1e-3, 5e-2     # plan means (tests/test_torch_mpc.py)
+
 
 
 def preview_phase(dev):
@@ -871,11 +913,13 @@ def mpc_twin_phase(dev):
 @contextlib.contextmanager
 def first_calls():
     """While open, each wrapper that fs.make_cuda_step / make_cuda_rollout
-    makes passes its calls through unchanged (the launch counts are its
-    own) and keeps its first call: yields the list of {entry, m, args, kw,
-    inputs} it appends to, one per wrapper, in the order of first calls."""
+    / make_cuda_sim makes passes its calls through unchanged (the launch
+    counts are its own) and keeps its first call: yields the list of
+    {entry, m, args, kw, inputs} it appends to, one per wrapper, in the
+    order of first calls."""
     from roboticsplayroompybullet_torch.ops import fused_step as fs
-    log, made = [], (fs.make_cuda_step, fs.make_cuda_rollout)
+    log = []
+    made = (fs.make_cuda_step, fs.make_cuda_rollout, fs.make_cuda_sim)
 
     def keep(entry, make):
         def mk(cfg, tree, arm, scene, *args, **kw):
@@ -893,20 +937,22 @@ def first_calls():
 
     fs.make_cuda_step = keep("step", made[0])
     fs.make_cuda_rollout = keep("rollout", made[1])
+    fs.make_cuda_sim = keep("sim", made[2])
     try:
         yield log
     finally:
-        fs.make_cuda_step, fs.make_cuda_rollout = made
+        fs.make_cuda_step, fs.make_cuda_rollout, fs.make_cuda_sim = made
 
 
-def preview_horizon_check(m, kw, parts):
+def preview_horizon_check(m, kw, parts, plain_steps=None):
     """parts: [(tag, X0 (NF, B), actions (H, A, B), with_ee)] of one model at
     one fidelity kw (n_substeps, ik_iters, solve_iters), each through the
     rollout kernel and held step by step as horizon_twin_phase holds the
     H=40 rollout: the rollout kernel equals H step-kernel launches of the
     same fidelity (state and ags, the latter against the plain ag of each
-    step's state, within 1e-5), and at every step the plain step from the
-    kernel's state agrees with the kernel's next state (each field's p99
+    step's state, within 1e-5), and at every step (the first plain_steps
+    when given) the plain step from the kernel's state agrees with the
+    kernel's next state (each field's p99
     within the one-step bounds, positions within ROLLOUT_MAX). An env
     outside the one-step bounds is stepped again by the plain twin in
     float64, and counts against the kernel only where the kernel is
@@ -925,13 +971,24 @@ def preview_horizon_check(m, kw, parts):
     ag_of = [fs.make_lane_ag(cfg, tree, m.arm, ee) for *_, ee in parts]
     worst = [dict(flips=0, against=0, ags=0.0, fields={}) for _ in parts]
     bad, outside = [], []
+    n_plain = H if plain_steps is None else min(H, plain_steps)
     with torch.no_grad():
+        # a captured graph pays for itself from ~4 plain steps on
+        step_g = step_p if n_plain < 4 else replayed(
+            step_p, torch.cat([X for _, X, _, _ in parts], 1),
+            torch.cat([a[0] for _, _, a, _ in parts], 1))
         runs = [fs.make_cuda_rollout(*m, H, with_ee=ee, **kw)(X, a)
                 for _, X, a, ee in parts]
         Xk = [X for _, X, _, _ in parts]
         for h in range(H):
             Xin = list(Xk)
-            Y = torch.split(step_p(torch.cat(Xin, 1), torch.cat(
+            if plain_steps is not None and h >= plain_steps:
+                for j, (_, _, a, _) in enumerate(parts):
+                    Xk[j] = step_k(Xin[j], a[h])
+                    worst[j]["ags"] = max(worst[j]["ags"], float(
+                        (runs[j][1][h] - ag_of[j](Xk[j])).abs().max()))
+                continue
+            Y = torch.split(step_g(torch.cat(Xin, 1), torch.cat(
                 [a[h] for _, _, a, _ in parts], 1)), Bs, 1)
             flagged = []
             for j, (tag, _, a, _) in enumerate(parts):
@@ -1009,14 +1066,15 @@ def preview_horizon_check(m, kw, parts):
         raise AssertionError("; ".join(fails))
 
 
-def mpc_shapes_phase(calls):
+def mpc_shapes_phase(calls, plain_steps=None):
     """The MPC path's kernels held at the path's own shapes, on its own
     inputs (the first call of each kernel wrapper in mpc_path_phase,
     `calls` {piece: first_calls log}): the preview rollouts (H=10, ik 8 /
     solve 8: the flagship replan's B=1024 and the eval step's B=4096
     with_ee in one plain call a step, the UR5Reach closed loop's B=1024)
-    by preview_horizon_check, and the executed steps (the eval step's B=4,
-    the closed loop's B=1) against the plain step at the twin bounds."""
+    by preview_horizon_check (teacher-forced over the first plain_steps
+    when given), and the executed steps (the eval step's B=4, the closed
+    loop's B=1) against the plain step at the twin bounds."""
     from roboticsplayroompybullet_torch.envs.core import EnvModel
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     fid = ("n_substeps", "ik_iters", "solve_iters")
@@ -1026,8 +1084,8 @@ def mpc_shapes_phase(calls):
             X, a = c["inputs"]
             kw = {k: c["kw"].get(k) for k in fid if k in c["kw"]}
             tag = (f"mpc path {piece} {c['entry']} kernel B={X.shape[1]}"
-                   + (f" H={a.shape[0]} ik {kw.get('ik_iters')} solve "
-                      f"{kw.get('solve_iters')}"
+                   + (f" H={a.shape[0]} ik {kw.get('ik_iters') or 'default'}"
+                      f" solve {kw.get('solve_iters') or 8}"
                       + (" with_ee" if c["kw"].get("with_ee") else "")
                       if c["entry"] == "rollout" else ""))
             if c["entry"] == "step":
@@ -1042,7 +1100,7 @@ def mpc_shapes_phase(calls):
             groups.setdefault(key, (c["m"], kw, []))[2].append(
                 (tag, X, a, bool(c["kw"].get("with_ee"))))
     for m, kw, parts in groups.values():
-        preview_horizon_check(EnvModel(*m), kw, parts)
+        preview_horizon_check(EnvModel(*m), kw, parts, plain_steps)
 
 
 def mpc_path_inputs(dev):
@@ -1251,6 +1309,497 @@ def mpc_timing_phase(dev, p):
         "preview_bound_ms_B4096": boundE[0], "exec_step_kernel_ms_B4": kx})
 
 
+# ---------------------------------------------------------------------------
+# the env layer (envs/core.py, envs/wrapper.py, parallel/rollout.py,
+# solver/mpc.py's plan / mpc_rollout)
+# ---------------------------------------------------------------------------
+
+GOLDEN_BOUNDS = dict(ee=2e-3, ag=5e-3, q=2e-2)   # tests/test_golden.py:63-77
+ENV_B, ENV_STEPS, OOB_B = 4096, 10, 1024
+RESET_ENVS = (FLAGSHIP, "pandaPlay-v0")         # 1 block; 2 (block-block)
+SETTLE_HELD = FLAGSHIP         # whose first settle launch meets the plain
+TABLE_TOP = -0.025             # play scene: static box 0's top face
+MIN_ON_TABLE = 0.75            # share of blocks a reset leaves on it
+# the UR5Reach MPC demo (tests/test_solver.py:75-91: MPPI, sigma 0.35, 14
+# steps) at H=10 and 256 candidates
+PLAN_LOOP_CFG = dict(horizon=10, pop=256, iters=2, algorithm="mppi",
+                     sigma_init=0.35)
+PLAN_LOOP_ENVS, PLAN_LOOP_STEPS, PLAN_LOOP_PLAIN = 3, 14, 2
+
+
+def counted(fn):
+    """(fn's result, the launch counts of its run): every count set to 0
+    just before, read just after."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    fs.reset_launch_counts()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fs.LAUNCHES)
+
+
+def env_golden_phase(dev):
+    """PlayEnv on the card replays the 19 goldens (reset(o=o0), 25 steps,
+    the step kernel at B=1). Free-running, ee / ag / q against the golden
+    at tests/test_golden.py's bounds, held for each id and quantity where
+    the JAX lane twin's own replay (the golden_lane fixture: 25 steps of a
+    UR5 id, the first of most Panda ids) keeps them and no teacher-forced
+    step leaves the one-step bounds (past such a branch two float32
+    roundings part, as at H=40); elsewhere printed as a known divergence.
+    Teacher-forced, from each of the JAX lane replay's states one
+    step-kernel launch (all of an id's in one launch)
+    against the replay's next state at the one-step bounds; a step outside
+    them is stepped again by the plain twin in float64 and counts against
+    the kernel where the kernel is farther from it than JAX's lane twin
+    (at most MAX_FLIPS such steps an id)."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch.envs import wrapper
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    gdir = os.path.join(ROOT, "tests", "golden")
+    ids = sorted(CATALOG)
+    runs = {}
+
+    def drive():
+        for env_id in ids:
+            z = tp.load(f"golden_lane_{tp.key(env_id)}")
+            env = wrapper.make(env_id, seed=7, device=dev)
+            env.reset(o=z["o0"])
+            ee, ag, q = [], [], []
+            for a in z["actions"]:
+                obs, _, _, _ = env.step(a)
+                ee.append(obs["controllable_achieved_goal"][:3])
+                ag.append(obs["achieved_goal"])
+                q.append(env.state.q[0].cpu().numpy())
+            runs[env_id] = (env.model, z, np.stack(ee), np.stack(ag),
+                            np.stack(q))
+
+    t0 = time.perf_counter()
+    _, launches = counted(drive)
+    secs = time.perf_counter() - t0
+    n = sum(len(r[2]) for r in runs.values())
+    say(f"[env golden] launches {launches} ({len(ids)} ids, {n} steps, "
+        f"{secs:.1f} s)")
+    if launches["step"] != n:
+        raise AssertionError("env golden: not one step launch a step")
+    bad, rows = [], {}
+    for env_id in ids:
+        m, z, ee, ag, q = runs[env_id]
+        T_ = len(ee)
+        with np.load(os.path.join(gdir, env_id.replace("-", "_")
+                                  + ".npz")) as g:
+            err = {"ee": float(np.linalg.norm(ee - g["ee"][:T_],
+                                              axis=-1).max()),
+                   "ag": float(np.abs(ag - g["ag"][:T_]).max()),
+                   "q": float(np.abs(q - g["q"][:T_]).max())}
+        lane = {k: float(z[f"err_{k}"].max()) for k in err}
+        TL = len(z["X"])          # the steps the JAX lane replay holds
+        X0 = torch.tensor(np.concatenate([z["X0"][None], z["X"][:-1]]).T,
+                          device=dev).contiguous()
+        acts = torch.tensor(z["actions"][:TL].T, device=dev).contiguous()
+        XJ = torch.tensor(z["X"].T, device=dev)
+        pos_rows = position_rows(m.cfg, m.tree, dev)
+        with torch.no_grad():
+            Xk = fs.make_cuda_step(*m)(X0, acts)
+            # a step outside the one-step bounds is stepped again by the
+            # plain twin in float64: it counts against the kernel only where
+            # the kernel is farther from that step than JAX's lane twin
+            out = torch.nonzero(env_error(Xk, XJ, pos_rows) > 1).flatten()
+            against = []
+            if len(out):
+                Y64 = fs.make_reference_step(*m)(X0[:, out].double(),
+                                                 acts[:, out].double())
+                ek = env_error(Xk[:, out], Y64, pos_rows)
+                ej = env_error(XJ[:, out], Y64, pos_rows)
+                against = [(int(t) + 1, float(a), float(b))
+                           for t, a, b in zip(out, ek, ej) if a > b]
+        torch.cuda.synchronize()
+        diffs = field_diffs(m.cfg, m.tree, Xk, XJ)
+        # free-running, two float32 roundings part at a branch (an IK fixed
+        # point, a contact): past a teacher-forced step outside the
+        # one-step bounds the free-running comparison measures that, so it
+        # is held only where there is none and the JAX lane replay keeps
+        # the golden's bound
+        held = {k: lane[k] < GOLDEN_BOUNDS[k] and not len(out)
+                for k in err}
+        free_bad = [k for k in err if held[k]
+                    and not err[k] < GOLDEN_BOUNDS[k]]
+        say(f"[env golden] {env_id}: free-running vs golden " + ", ".join(
+            f"{k} {err[k]:.3e} (JAX lane {lane[k]:.3e}, "
+            + (f"<{GOLDEN_BOUNDS[k]:g})" if held[k] else
+               "not held: " + ("a float32 branch, teacher-forced below)"
+                               if len(out) else "known divergence)"))
+            for k in err)
+            + f"; teacher-forced vs JAX lane, worst of {TL} steps: "
+            + ", ".join(f"{k} {v[0]:.2e}" for k, v in diffs.items())
+            + f"; steps outside the one-step bounds {(out + 1).tolist()}, "
+            "of them farther from the float64 step than JAX's (step, "
+            f"kernel, JAX, in units of the bounds) {against} "
+            f"(<={MAX_FLIPS}) "
+            f"{'ok' if not free_bad and len(against) <= MAX_FLIPS else 'FAIL'}")
+        rows[env_id] = {"free": err, "jax_lane": lane, "held": held,
+                        "teacher_forced": {k: {"max": v[0], "p99": v[1]}
+                                           for k, v in diffs.items()},
+                        "steps_outside": (out + 1).tolist(),
+                        "against_kernel": against}
+        if free_bad or len(against) > MAX_FLIPS:
+            bad.append((env_id, free_bad, against))
+    record("env_golden", {"launches": launches, "seconds": secs,
+                          "ids": rows})
+    if bad:
+        raise AssertionError(f"env golden outside the bounds: {bad}")
+    return launches
+
+
+def _blocks_rest(tag, m, st):
+    """Settled blocks. The reference places a block turned 90° about z
+    (its long side along y) anywhere in y ∈ [0, 0.3], so one placed near
+    y = 0 overhangs the table's front edge and tips off; with two blocks,
+    placed independently at heights 3 cm apart (a block is 5 cm tall), an
+    overlapping pair is pushed apart. Such blocks are still moving when
+    the 1/3 s settle ends. Held: no block sunk into the floor by more than
+    a quarter of its height (one that tipped off may be landing), at
+    least MIN_ON_TABLE of them resting on the table top (centre within
+    5 mm of half a block above it), and the median speed of those under
+    1 cm/s; the p99 speed is printed."""
+    z = st.obj_pos[..., 2]
+    hz = float(m.scene.block_half[2])
+    speed = torch.linalg.vector_norm(st.obj_vel, dim=-1)
+    on = (z - (TABLE_TOP + hz)).abs() < 5e-3
+    rest = speed[on]
+    q = (lambda p: float(torch.quantile(rest, p))  # noqa: E731
+         if rest.numel() else float("nan"))
+    out = {"z_min": float(z.min()), "z_max": float(z.max()),
+           "on_table": float(on.float().mean()),
+           "on_table_speed_p50": q(0.5), "on_table_speed_p99": q(0.99)}
+    say(f"[{tag}] blocks: z in [{out['z_min']:.4f}, {out['z_max']:.4f}] m, "
+        f"{100 * out['on_table']:.2f} % resting on the table top (>= "
+        f"{100 * MIN_ON_TABLE:g} %), their speed p50 "
+        f"{out['on_table_speed_p50']:.2e} (<=1e-2) p99 "
+        f"{out['on_table_speed_p99']:.2e} m/s")
+    if (out["z_min"] < float(m.scene.plane_z) + hz / 2
+            or out["on_table"] < MIN_ON_TABLE
+            or not out["on_table_speed_p50"] <= 1e-2):
+        raise AssertionError(f"{tag}: blocks not resting on the table")
+    return out
+
+
+def env_reset_phase(dev):
+    """batched_reset at B=4096 on the flagship and the 2-block pandaPlay,
+    with the launch counts read around it: every object in bounds, every
+    reward −1, the blocks resting on the table, and the attempts taken.
+    SETTLE_HELD's first settle launch (the sim kernel, 100 substeps, at its
+    own B) is held to the plain twin, teacher-forced-step style: each
+    field's p99 within the one-step bounds, positions within ROLLOUT_MAX,
+    and at most MAX_FLIPS envs outside the one-step bounds (a resting
+    block's angular velocity flips under rounding, bench.py:258-263; a
+    tipping block's path is chaotic) or, past that, at most MAX_FLIPS of
+    them farther from the plain twin's float64 settle than its float32
+    one is. Then the
+    out-of-bounds case of tests/test_env.py:140-167 (pandaPush with
+    env_range_high.x = 0) at B=1024 must end in bounds, and the flagship's
+    reset is timed."""
+    import dataclasses
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.envs.rewards import compute_reward
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.parallel import rollout as R
+    total = {"sim": 0, "step": 0, "rollout": 0}
+    res = {}
+    for env_id in RESET_ENVS + ("pandaPush-v0 x<=0",):
+        if env_id.startswith("pandaPush"):
+            m = core.build_model(dataclasses.replace(
+                CATALOG["pandaPush-v0"], env_range_high=(0.0, 0.18, -0.04)))
+            B = OOB_B
+        else:
+            m = core.build_model(CATALOG[env_id])
+            B = ENV_B
+        stats = {}
+        gen = torch.Generator(device=dev).manual_seed(20)
+        t0 = time.perf_counter()
+        with first_calls() as calls:
+            (st, obs), launches = counted(
+                lambda: R.batched_reset(m, gen, B, dev, stats))
+        secs = time.perf_counter() - t0
+        for k in total:
+            total[k] += launches[k]
+        tag = f"env reset {env_id} B={B}"
+        oob = int(core._objects_oob(m.cfg, st).sum())
+        r = compute_reward(m.cfg, obs["achieved_goal"], obs["desired_goal"])
+        resets, placed = stats["resets"], stats["placements"]
+        row = {"launches": launches, "seconds_first_call": secs,
+               "oob": oob, "rewards_not_minus_1": int((r != -1).sum()),
+               "resets_max": int(resets.max()),
+               "resets_mean": float(resets.float().mean()),
+               "placements_max": int(placed.max()),
+               "placements_mean": float(placed.float().mean())}
+        say(f"[{tag}] launches {launches}; {oob} envs out of bounds, "
+            f"{row['rewards_not_minus_1']} rewards not -1; draws per env "
+            f"mean {row['resets_mean']:.4f} max {row['resets_max']}, "
+            f"placements (100-substep settles) per env mean "
+            f"{row['placements_mean']:.4f} max {row['placements_max']}; "
+            f"{secs:.2f} s (first call)")
+        if launches["sim"] < 1 or oob or row["rewards_not_minus_1"]:
+            raise AssertionError(f"{tag}: no settle launch, objects out of "
+                                 "bounds or a solved env")
+        if not env_id.startswith("pandaPush"):
+            row["blocks"] = _blocks_rest(tag, m, st)
+        if env_id == SETTLE_HELD:
+            c = next(c for c in calls if c["entry"] == "sim")
+            X, ctrl, grip = c["inputs"]
+            with torch.no_grad():
+                Xk = fs.make_cuda_sim(*m, n_substeps=core.SETTLE_SUBSTEPS)(
+                    X, ctrl, grip)
+                t1 = time.perf_counter()
+                Yp = fs.make_reference_sim(
+                    *m, n_substeps=core.SETTLE_SUBSTEPS)(X, ctrl, grip)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t1
+            pos_rows = position_rows(m.cfg, m.tree, dev)
+            diffs, flips, pmax, over = judge_step(m.cfg, m.tree, pos_rows,
+                                                  Xk, Yp)
+            # an env outside the one-step bounds is settled again by the
+            # plain twin in float64; it counts against the kernel only
+            # where the kernel is farther from that than the float32 twin
+            f = torch.nonzero(env_error(Xk, Yp, pos_rows) > 1).flatten()
+            if flips <= MAX_FLIPS:      # nothing to witness
+                f = f[:0]
+            with torch.no_grad():
+                Y64 = fs.make_reference_sim(
+                    *m, n_substeps=core.SETTLE_SUBSTEPS)(
+                    X[:, f].double(), ctrl[:, f].double(),
+                    grip[f].double()) if len(f) else None
+            ek = env_error(Xk[:, f], Y64, pos_rows) if len(f) else []
+            ep = env_error(Yp[:, f], Y64, pos_rows) if len(f) else []
+            against = (int(sum(float(a) > float(b) for a, b in zip(ek, ep)))
+                       if len(f) else flips)
+            say(f"[{tag}] first settle launch (sim kernel, "
+                f"{core.SETTLE_SUBSTEPS} substeps, B={X.shape[1]}) vs the "
+                "plain twin: " + ", ".join(
+                    f"{k} max {v[0]:.2e} p99 {v[1]:.2e}"
+                    for k, v in diffs.items())
+                + f"; envs outside the one-step bounds {flips} (env: kernel"
+                " vs float64, float32 plain vs float64, in units of the "
+                "bounds: " + ", ".join(
+                    f"{int(e)}: {float(a):.2f} {float(b):.2f}"
+                    for e, a, b in zip(f, ek, ep))
+                + f"), of them farther from the float64 settle than the "
+                f"plain twin {against} (<={MAX_FLIPS}); plain {plain_s:.1f}"
+                f" s; {card()}")
+            row["settle_vs_plain"] = {
+                "fields": {k: {"max": v[0], "p99": v[1]}
+                           for k, v in diffs.items()},
+                "flips": flips, "against_kernel": against,
+                "B": X.shape[1], "plain_s": plain_s}
+            if over or pmax >= ROLLOUT_MAX or against > MAX_FLIPS:
+                raise AssertionError(f"{tag}: settle kernel outside the "
+                                     f"bounds: {over}, {pmax}, {flips}")
+        res[env_id] = row
+
+    # the reset's time once the kernels and constants are in place, and
+    # the settle launch alone at B=4096 beside its bound
+    m = core.build_model(CATALOG[FLAGSHIP])
+    gen = torch.Generator(device=dev).manual_seed(22)
+    with torch.no_grad():
+        ms = time_ms(lambda: R.batched_reset(m, gen, ENV_B, dev), 1,
+                     warm=False)        # warm: its first call came above
+        st = flagship_states(ENV_B, dev, seed=23)
+        X = fs.pack_state(m.cfg, m.tree, st)
+        sim = fs.make_cuda_sim(*m, n_substeps=core.SETTLE_SUBSTEPS)
+        ctrl, grip = st.ctrl_q.T.contiguous(), st.grip.contiguous()
+        k_ms = time_ms(lambda: sim(X, ctrl, grip), 3)
+    m100 = core.EnvModel(dataclasses.replace(
+        m.cfg, substeps=core.SETTLE_SUBSTEPS), m.tree, m.arm, m.scene)
+    b_ms, by = bound_ms(*work(m100, ENV_B, 1)["sim"])
+    say(f"[env reset] {FLAGSHIP} B={ENV_B}: {ms:.3f} ms per batched_reset; "
+        f"settle launch alone (sim kernel, {core.SETTLE_SUBSTEPS} substeps) "
+        f"{k_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), "
+        f"{100 * b_ms / k_ms:.2f} % of the bound; {card()}")
+    record("env_reset", dict(res, reset_ms=ms, settle_kernel_ms=k_ms,
+                             settle_bound_ms=b_ms, settle_bound_by=by))
+    return total
+
+
+def env_step_phase(dev):
+    """BatchedEnv at B=4096 on the flagship: ENV_STEPS steps with the launch
+    counts read around them; env steps/s and ms per step split into the
+    step kernel and calc_obs + reward + buffers; one step held to the
+    plain twin (state per field, the servo targets, then the obs); the
+    latency of PlayEnv.step at B=1."""
+    from roboticsplayroompybullet_torch.envs import core, wrapper
+    from roboticsplayroompybullet_torch.envs import obs as O
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    env = wrapper.make(FLAGSHIP, ENV_B, seed=24, device=dev)
+    m = env.model
+    rs = np.random.RandomState(25)
+    acts = torch.tensor(rs.uniform(-0.25, 0.25, (ENV_STEPS, ENV_B,
+                                                 m.cfg.action_dim)),
+                        dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        env.reset()
+    st0 = env.state
+
+    def drive():
+        out = None
+        for a in acts:
+            out = env.step(a)
+        return out
+
+    (obs, r, done, info), launches = counted(drive)
+    say(f"[env step] launches {launches} ({ENV_STEPS} steps of "
+        f"BatchedEnv B={ENV_B})")
+    if launches["step"] != ENV_STEPS or bool(done.any()):
+        raise AssertionError("env step: not one step launch a step, or done")
+    if not all(bool(torch.isfinite(v).all()) for v in obs.values()):
+        raise AssertionError("env step: non-finite obs")
+    if not bool((env.state.t == st0.t + ENV_STEPS).all()):
+        raise AssertionError("env step: t not advanced")
+
+    # one step against the plain twin at B=4096
+    X = fs.pack_state(m.cfg, m.tree, st0)
+    a0 = acts[0].T.contiguous()
+    with torch.no_grad():
+        Xk, Ck = core._stepper(m)(X, a0)
+        Xp, Cp = fs.make_reference_step(*m, with_ctrl=True)(X, a0)
+    torch.cuda.synchronize()
+    err = check_fields(f"env step B={ENV_B} kernel vs plain",
+                       field_diffs(m.cfg, m.tree, Xk, Xp))
+    dc = (Ck - Cp).abs().flatten()
+    cp99, cmax = float(torch.quantile(dc, 0.99)), float(dc.max())
+    say(f"[env step B={ENV_B} kernel vs plain] servo targets and grip: "
+        f"p99={cp99:.3e} (<=1e-3) max={cmax:.3e} (<=0.1)")
+    if cp99 > 1e-3 or cmax > 0.1:
+        raise AssertionError("env step: servo targets differ from the plain")
+    ok_ = {}
+    sk = fs.unpack_state(m.cfg, m.tree, Xk, st0)
+    sp = fs.unpack_state(m.cfg, m.tree, Xp, st0)
+    with torch.no_grad():
+        ok, op = O.calc_obs(*m, sk), O.calc_obs(*m, sp)
+    for k in ok:
+        d = (ok[k] - op[k]).abs()
+        if k == "observation":        # Euler angles: equal modulo 2π
+            e = d[:, 3:6]
+            d = torch.cat([d[:, :3], torch.minimum(e, 2 * np.pi - e),
+                           d[:, 6:]], dim=-1)
+        if k == "gripper_proprioception":
+            n = int((d > 0).sum())
+            ok_[k] = n
+            good = n <= MAX_FLIPS
+        elif k == "velocity":
+            ok_[k] = float(d.max())
+            good = (float(torch.quantile(d.flatten(), 0.99)) <= VEL_P99
+                    and ok_[k] <= VEL_MAX)
+        else:
+            ok_[k] = float(d.max())
+            good = ok_[k] <= POS_MAX
+        if not good:
+            raise AssertionError(f"env step obs {k} differs: {ok_[k]}")
+    say(f"[env step B={ENV_B} kernel vs plain] obs max " + ", ".join(
+        f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v} envs differ"
+        for k, v in ok_.items()) + f" ok; {card()}")
+
+    # timing: the whole env step, the kernel alone
+    stepk = core._stepper(m)
+    Xs = fs.pack_state(m.cfg, m.tree, env.state)
+    with torch.no_grad():
+        full = time_ms(lambda: env.step(acts[0]), ENV_STEPS)
+        kern = time_ms(lambda: stepk(Xs, a0), ENV_STEPS)
+        one = wrapper.make(FLAGSHIP, seed=26, device=dev)
+        one.reset()
+        a1 = rs.uniform(-0.25, 0.25, m.cfg.action_dim).astype(np.float32)
+        one.step(a1)
+        t0 = time.perf_counter()
+        for _ in range(ENV_STEPS):
+            one.step(a1)
+        lat = (time.perf_counter() - t0) * 1e3 / ENV_STEPS
+    say(f"[env step] BatchedEnv B={ENV_B}: {full:.3f} ms per step, "
+        f"{ENV_B / (full / 1e3):.1f} env steps/s; step kernel {kern:.3f} ms,"
+        f" calc_obs + reward + buffers {full - kern:.3f} ms; PlayEnv.step "
+        f"B=1 latency {lat:.3f} ms (host clock, numpy out); {card()}")
+    record("env_step", {"launches": launches, "ms_per_step": full,
+                        "env_steps_per_s": ENV_B / (full / 1e3),
+                        "kernel_ms": kern, "rest_ms": full - kern,
+                        "playenv_step_ms": lat, "obs_vs_plain": ok_,
+                        "state_vs_plain_max": err,
+                        "ctrl_vs_plain": {"p99": cp99, "max": cmax}})
+    return launches
+
+
+def plan_loop_phase(dev):
+    """mpc_rollout (the single-device planner at the env step's fidelity,
+    one rollout launch a refinement, one step launch a control step) on
+    UR5Reach from PLAN_LOOP_ENVS random resets, PLAN_LOOP_CFG, for
+    PLAN_LOOP_STEPS steps, with the launch counts read around it: each EE-
+    goal distance must end below REACH_SHRINK of its start. Its first
+    rollout launch (B=256, H=10, full fidelity) is held to the plain twin
+    teacher-forced over its first PLAN_LOOP_PLAIN steps and to 10 step
+    launches bit for bit, its first step launch per field; then ms per
+    replan."""
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.envs.obs import achieved_goal
+    from roboticsplayroompybullet_torch.envs.state import EnvState
+    from roboticsplayroompybullet_torch.parallel import rollout as R
+    from roboticsplayroompybullet_torch.solver import cost, mpc
+    m = core.build_model(CATALOG["UR5Reach-v0"])
+    cfg = mpc.MPCConfig(**PLAN_LOOP_CFG)
+    with torch.no_grad():
+        starts, _ = R.batched_reset(
+            m, torch.Generator(device=dev).manual_seed(27), PLAN_LOOP_ENVS,
+            dev)
+    starts = [EnvState(**{k: v[i:i + 1] for k, v in vars(starts).items()})
+              for i in range(PLAN_LOOP_ENVS)]
+    dist = lambda s: float(cost.goal_distance(  # noqa: E731
+        m.cfg, achieved_goal(m.cfg, m.tree, m.arm, s), s.goal)[0])
+    loops = []
+
+    def drive():
+        for i, s0 in enumerate(starts):
+            loops.append(mpc.mpc_rollout(
+                m, cfg, s0, torch.Generator(device=dev).manual_seed(28 + i),
+                PLAN_LOOP_STEPS))
+
+    with first_calls() as log:
+        _, launches = counted(drive)
+    say(f"[mpc plan loop] launches {launches}")
+    want = PLAN_LOOP_ENVS * PLAN_LOOP_STEPS
+    if launches["rollout"] != want * cfg.iters or launches["step"] != want:
+        raise AssertionError("mpc plan loop: not one rollout launch a "
+                             "refinement and one step launch a step")
+    res = []
+    for i, (s0, (fin, acts, rws, bests)) in enumerate(zip(starts, loops)):
+        d0, d1 = dist(s0), dist(fin)
+        ok = (d1 < REACH_SHRINK * d0 and bool(torch.isfinite(bests).all())
+              and acts.shape == (PLAN_LOOP_STEPS, m.cfg.action_dim))
+        say(f"[mpc plan loop] UR5Reach env {i}, mpc_rollout MPPI H="
+            f"{cfg.horizon} pop={cfg.pop} sigma {cfg.sigma_init}: EE-goal "
+            f"distance {d0:.4f} -> {d1:.4f} m in {PLAN_LOOP_STEPS} steps, "
+            f"ratio {d1 / d0:.3f} (<{REACH_SHRINK:g}) "
+            f"{'ok' if ok else 'FAIL'}; {card()}")
+        res.append({"d0": d0, "d1": d1})
+        if not ok:
+            raise AssertionError(f"mpc plan loop env {i}: {d0} -> {d1}")
+    mpc_shapes_phase({"plan loop": log}, plain_steps=PLAN_LOOP_PLAIN)
+
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def chain(n=1):
+        pl = mpc.init_plan(m, cfg, device=dev)
+        for _ in range(n):
+            pl, _ = mpc.plan(m, cfg, starts[0], pl, g)
+        return pl
+
+    with torch.no_grad():
+        ms, host = _chain_ms(chain, CHAIN)
+    say(f"[mpc plan loop] plan pop={cfg.pop} H={cfg.horizon} iters="
+        f"{cfg.iters} full fidelity: {ms:.3f} ms per replan (chain of "
+        f"{CHAIN}; host enqueue {host:.3f} ms); {card()}")
+    record("mpc_plan_loop", {"launches": launches, "loops": res,
+                             "replan_ms": ms, "replan_host_ms": host})
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -1277,6 +1826,14 @@ def main():
     mpc_launches, mpc_calls = mpc_path_phase(dev, p)
     mpc_shapes_phase(mpc_calls)
     mpc_timing_phase(dev, p)
+    env_launches = {}
+    for name, phase in (("env step", env_step_phase),
+                        ("env reset", env_reset_phase),
+                        ("mpc plan loop", plan_loop_phase),
+                        ("env golden", env_golden_phase)):
+        t0 = time.perf_counter()
+        env_launches[name] = phase(dev)
+        say(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
 
     # the bound of each kernel at the shape it was timed at (B=4096, the
     # rollout at H=2); no single PyTorch call computes the fused step
@@ -1289,12 +1846,12 @@ def main():
         f"({main_bound[1]}), {100 * main_bound[0] / RESULTS['main_path']['ms']:.2f}"
         " % of it")
     record("bounds", {k: {"ms": v[0], "by": v[1]} for k, v in bounds.items()})
-    # launches: the main path's run plus the MPC path's run
+    # launches: the runs of the main path, the MPC path and the env paths
+    by_path = dict({"main": launches, "mpc": mpc_launches}, **env_launches)
     kernels = [{"name": f"fused_step.{k}", "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k],
-                "launches": launches[k] + mpc_launches[k],
-                "launches_by_path": {"main": launches[k],
-                                     "mpc": mpc_launches[k]},
+                "launches": sum(v[k] for v in by_path.values()),
+                "launches_by_path": {p_: v[k] for p_, v in by_path.items()},
                 "max_abs_err": errs[k], "ms": times[k][0],
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}
@@ -1303,7 +1860,8 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(RESULTS, kernels=kernels), f, indent=1)
+            json.dump(dict(RESULTS, kernels=kernels), f, indent=1,
+                      default=float)      # numpy scalars
     say(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

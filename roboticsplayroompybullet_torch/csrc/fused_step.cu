@@ -1605,11 +1605,17 @@ FS_DEV void env_sim(const Model& M, EnvSh& S, const Team& T, const float* X,
   store_state(M, S, T, Y, b, B);
 }
 
+// C (n_arm + 1, B), when given, receives the servo targets and the
+// gripper command that control() chose (the env step's ctrl_q and grip)
 FS_DEV void env_step(const Model& M, EnvSh& S, const Team& T, const float* X,
-                     const float* act, float* Y, long b, long B) {
+                     const float* act, float* Y, float* C, long b, long B) {
   load_state(M, S, T, X, b, B);
   load_actions(M, S, T, act, b, B);
   control(M, S, T);
+  if (C) {
+    for (int j = T.lane; j < M.n_arm; j += FS_G) C[j * B + b] = S.ctrl[j];
+    if (T.lane == 0) C[M.n_arm * B + b] = S.grip[0];
+  }
   run_sim(M, S, T);
   store_state(M, S, T, Y, b, B);
 }
@@ -1685,12 +1691,13 @@ fs_sim_kernel(const Model* __restrict__ Mg, const float* __restrict__ X,
 
 __global__ void __launch_bounds__(FS_THREADS)
 fs_step_kernel(const Model* __restrict__ Mg, const float* __restrict__ X,
-               const float* __restrict__ act, float* __restrict__ Y, int B) {
+               const float* __restrict__ act, float* __restrict__ Y,
+               float* __restrict__ C, int B) {
   const Model& M = block_model(Mg);
   long b = (long)blockIdx.x * FS_ENVS + threadIdx.x / FS_TEAM;
   if (b >= B) return;
   Team T{(int)(threadIdx.x % FS_TEAM)};
-  env_step(M, warp_env(), T, X, act, Y, b, B);
+  env_step(M, warp_env(), T, X, act, Y, C, b, B);
 }
 
 __global__ void __launch_bounds__(FS_THREADS)
@@ -1725,14 +1732,21 @@ extern "C" int fs_sim(const void* M, const void* X, const void* ctrl,
   return (int)cudaGetLastError();
 }
 
-extern "C" int fs_step(const void* M, const void* X, const void* act, void* Y,
-                       int B, void* stream) {
+// fs_step with the chosen servo targets and gripper command written to C
+// (n_arm + 1, B)
+extern "C" int fs_step_ctrl(const void* M, const void* X, const void* act,
+                            void* Y, void* C, int B, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   int code = fs_allow_smem(fs_step_kernel);
   if (code != 0) return code;
   fs_step_kernel<<<fs_blocks(B), FS_THREADS, FS_SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const Model*)M, (const float*)X, (const float*)act, (float*)Y, B);
+      (const Model*)M, (const float*)X, (const float*)act, (float*)Y, (float*)C, B);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fs_step(const void* M, const void* X, const void* act, void* Y,
+                       int B, void* stream) {
+  return fs_step_ctrl(M, X, act, Y, nullptr, B, stream);
 }
 
 extern "C" int fs_rollout(const void* M, const void* X, const void* act, void* Y,

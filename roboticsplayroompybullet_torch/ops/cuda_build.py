@@ -180,6 +180,9 @@ def library(source: str = SOURCE):
             lib.fs_rollout.argtypes = [P, P, P, P, P, I, I, P]
             for f in (lib.fs_sim, lib.fs_step, lib.fs_rollout):
                 f.restype = I
+            if hasattr(lib, "fs_step_ctrl"):  # older copies of the source
+                lib.fs_step_ctrl.argtypes = [P, P, P, P, P, I, P]
+                lib.fs_step_ctrl.restype = I
             lib.fs_error_string.argtypes = [I]
             lib.fs_error_string.restype = ctypes.c_char_p
             _check_layout(lib, source)
@@ -443,7 +446,10 @@ class KernelModel:
             return lib.fs_rollout(m, X.data_ptr(), act.data_ptr(),
                                   Y.data_ptr(), ags.data_ptr(), H, B, stream)
         if which == "step":
-            X, act, Y = args
+            X, act, Y, C = args
+            if C is not None:
+                return lib.fs_step_ctrl(m, X.data_ptr(), act.data_ptr(),
+                                        Y.data_ptr(), C.data_ptr(), B, stream)
             return lib.fs_step(m, X.data_ptr(), act.data_ptr(), Y.data_ptr(),
                                B, stream)
         X, ctrl, grip, Y = args

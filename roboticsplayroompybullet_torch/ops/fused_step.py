@@ -63,16 +63,23 @@ def _np_quat_rotate(q, v):
 _CONST_CACHE: dict = {}
 
 
-def _const(arr, like: torch.Tensor) -> torch.Tensor:
-    """numpy constant → float32 tensor of shape arr.shape + like.shape
-    (an expanded view; the constant itself is cached per device)."""
+def const_on(arr, device) -> torch.Tensor:
+    """numpy constant → float32 tensor on `device`, copied there once and
+    cached (a copy per call would wait for the card)."""
     a = np.ascontiguousarray(np.asarray(arr, f32))
-    key = (a.tobytes(), a.shape, like.device)
+    key = (a.tobytes(), a.shape, torch.device(device))
     t = _CONST_CACHE.get(key)
     if t is None:
-        t = torch.as_tensor(a, device=like.device)
+        t = torch.as_tensor(a, device=device)
         _CONST_CACHE[key] = t
-    return t.reshape(a.shape + (1,) * like.dim()).expand(a.shape + like.shape)
+    return t
+
+
+def _const(arr, like: torch.Tensor) -> torch.Tensor:
+    """numpy constant → float32 tensor of shape arr.shape + like.shape
+    (an expanded view of the cached constant)."""
+    t = const_on(arr, like.device)
+    return t.reshape(t.shape + (1,) * like.dim()).expand(t.shape + like.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -1429,10 +1436,12 @@ def make_lane_control(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
 def make_reference_step(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
                         scene: Scene, n_substeps: Optional[int] = None,
                         ik_iters: Optional[int] = None,
-                        solve_iters: int = 8):
+                        solve_iters: int = 8, with_ctrl: bool = False):
     """Plain twin of the `step` kernel: step_B(X (NF, B), actions (A, B))
-    → X'. ik_iters/solve_iters below the defaults give the cheaper preview
-    model, not the reference-parity env step."""
+    → X', or with with_ctrl (X', C (n_arm + 1, B)): the servo targets and
+    the gripper command control chose. ik_iters/solve_iters below the
+    defaults give the cheaper preview model, not the reference-parity env
+    step."""
     sim = make_lane_sim(cfg, tree, arm, scene, n_substeps,
                         solve_iters=solve_iters)
     control = make_lane_control(cfg, tree, arm, ik_iters=ik_iters)
@@ -1440,7 +1449,10 @@ def make_reference_step(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
     def step_B(X, actions):
         st = _lanes_from_block(cfg, tree, X)
         ctrl, grip = control(st["q"], actions)
-        return _block_from_lanes(cfg, tree, sim(st, ctrl, grip))
+        X2 = _block_from_lanes(cfg, tree, sim(st, ctrl, grip))
+        if with_ctrl:
+            return X2, torch.cat([ctrl, grip[None]], dim=0)
+        return X2
 
     return step_B
 
@@ -1581,8 +1593,11 @@ def make_cuda_sim(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
 
 def make_cuda_step(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
                    scene: Scene, n_substeps: Optional[int] = None,
-                   ik_iters: Optional[int] = None, solve_iters: int = 8):
-    """step_B(X (NF, B), actions (A, B)) → X' through the `step` kernel."""
+                   ik_iters: Optional[int] = None, solve_iters: int = 8,
+                   with_ctrl: bool = False):
+    """step_B(X (NF, B), actions (A, B)) → X' through the `step` kernel;
+    with with_ctrl (X', C (n_arm + 1, B)), C the servo targets and gripper
+    command the kernel's control chose, written by the same launch."""
     km = _cuda_setup(cfg, tree, arm, scene, n_substeps, ik_iters,
                      solve_iters)
     _, NF = _field_rows(cfg, tree)
@@ -1592,9 +1607,11 @@ def make_cuda_step(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
         _check("X", X, (NF, B))
         _check("actions", actions, (cfg.action_dim, B), X.device)
         out = torch.empty_like(X)
-        km.launch("step", X.device, B, X, actions, out)
+        C = (torch.empty((arm.n_arm + 1, B), dtype=torch.float32,
+                         device=X.device) if with_ctrl else None)
+        km.launch("step", X.device, B, X, actions, out, C)
         LAUNCHES["step"] += 1
-        return out
+        return (out, C) if with_ctrl else out
 
     return step_B
 

@@ -1,8 +1,8 @@
 """Quaternion helpers over a trailing component axis (..., 4), xyzw.
 
 Port of the part of roboticsplayroompybullet_tpu/ops/spatial.py that the
-rewards need. Euler conventions reproduce pybullet.getEulerFromQuaternion
-(extrinsic XYZ).
+rewards and observations need. Euler conventions reproduce
+pybullet.getEulerFromQuaternion / getQuaternionFromEuler (extrinsic XYZ).
 """
 from __future__ import annotations
 
@@ -26,3 +26,29 @@ def quat_to_euler(q):
     cosy = 1.0 - 2.0 * (y * y + z * z)
     yaw = torch.atan2(siny, cosy)
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def quat_conjugate(q):
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def _cross(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate v by q (v_world = R(q) v_local)."""
+    qv = q[..., :3]
+    t = 2.0 * _cross(qv, v)
+    return v + q[..., 3:4] * t + _cross(qv, t)
+
+
+def quat_rotate_inverse(q, v):
+    return quat_rotate(quat_conjugate(q), v)
+
+
+def quat_from_axis_angle(axis, angle):
+    """axis (3,) or (..., 3), angle (...) → (..., 4)."""
+    half = angle[..., None] * 0.5
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)

@@ -56,14 +56,27 @@ def _dispatch(make_cuda, make_ref, backend: str):
 
 
 def _stepper(m: EnvModel, backend: str, ik_iters=None, solve_iters: int = 8,
-             n_substeps=None):
+             n_substeps=None, with_ctrl: bool = False):
+    """step_B(X (NF, B), actions (A, B)) → X' (with with_ctrl, (X', C
+    (n_arm + 1, B)): the servo targets and gripper command): one `step`
+    launch on CUDA tensors."""
     kw = dict(n_substeps=n_substeps, ik_iters=ik_iters,
-              solve_iters=solve_iters)
+              solve_iters=solve_iters, with_ctrl=with_ctrl)
     cfg, tree, arm, scene = m
     return _dispatch(lambda: fs.make_cuda_step(cfg, tree, arm, scene, **kw),
                      lambda: fs.make_reference_step(cfg, tree, arm, scene,
                                                     **kw),
                      backend)
+
+
+def _simmer(m: EnvModel, backend: str, n_substeps=None):
+    """sim_B(X (NF, B), ctrl (n_arm, B), grip (B,)) → X': n substeps from
+    the given servo targets, one `sim` launch on CUDA tensors."""
+    cfg, tree, arm, scene = m
+    return _dispatch(
+        lambda: fs.make_cuda_sim(cfg, tree, arm, scene, n_substeps),
+        lambda: fs.make_reference_sim(cfg, tree, arm, scene, n_substeps),
+        backend)
 
 
 def _roller(m: EnvModel, horizon: int, backend: str, **kw):

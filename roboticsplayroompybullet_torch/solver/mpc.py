@@ -1,10 +1,14 @@
 """Sampling MPC (MPPI / CEM) over the fused rollout kernel (port of the
-fused path of roboticsplayroompybullet_tpu/solver/mpc.py).
+single-device paths of roboticsplayroompybullet_tpu/solver/mpc.py).
 
 A receding-horizon controller that scores a population of action
 sequences per replan: the population is the kernel batch, so each
 refinement iteration is one whole-horizon `rollout` launch, and the
-executed control step one `step` launch (ops/fused_step.py). The MPPI/CEM
+executed control step one `step` launch (ops/fused_step.py). Two planners:
+the fused one (`make_fused_planner`, the batched MPC step, their closed
+loop) previews with the cheap model (8 IK / 8 solve iterations), and the
+single-device `plan` / `mpc_rollout` scores at the env step's fidelity
+(the arm's IK iterations, 8 solve iterations). The MPPI/CEM
 statistics are plain torch ops over the population axis, batched over any
 leading env axes (the JAX package's vmap written out).
 
@@ -22,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..envs import core
 from ..envs.core import EnvModel
 from ..envs.obs import achieved_goal, ee_state
 from ..envs.rewards import compute_reward
@@ -182,6 +187,66 @@ def _update_fn(cfg: MPCConfig):
     if cfg.algorithm not in ("mppi", "cem"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
     return _mppi_update if cfg.algorithm == "mppi" else _cem_update
+
+
+def _score(m: EnvModel, cfg: MPCConfig, state: EnvState,
+           actions: torch.Tensor) -> torch.Tensor:
+    """(n, H, A) candidates → (n,) costs, all from the one env of `state`:
+    one full-fidelity `rollout` launch of the n tiled start states on the
+    card."""
+    roll = core._fn(m, ("score", cfg.horizon), lambda: _fused._roller(
+        m, cfg.horizon, "auto"))
+    X = fs.pack_state(m.cfg, m.tree, state).repeat(1, actions.shape[0])
+    _, ags = roll(X, actions.permute(1, 2, 0).contiguous())
+    return trajectory_cost(m.cfg, ags.permute(2, 0, 1), state.goal, actions,
+                           cfg.weights)
+
+
+def _plan_iters(m: EnvModel, cfg: MPCConfig, state: EnvState,
+                plan_state: PlanState, gen: torch.Generator):
+    """cfg.iters refinements of plan_state (H, A) on cfg.pop candidates →
+    (plan, best cost of the last iteration)."""
+    hi = _bounds(m, state.q)
+    update = _update_fn(cfg)
+    pl, best = plan_state, None
+    for _ in range(cfg.iters):
+        acts = _sample(gen, pl, cfg, cfg.pop, hi)
+        costs = _score(m, cfg, state, acts)
+        pl = update(pl, cfg, acts, costs)
+        best = costs.amin()
+    return pl, best
+
+
+def plan(m: EnvModel, cfg: MPCConfig, state: EnvState,
+         plan_state: PlanState, gen: torch.Generator):
+    """Single-device replan of the one env of `state` from plan_state,
+    scored at the env step's fidelity. Returns (new plan, best rollout
+    cost)."""
+    if state.q.shape[0] != 1:
+        raise ValueError(f"plan takes one env, got {state.q.shape[0]}")
+    return _plan_iters(m, cfg, state, plan_state, gen)
+
+
+def mpc_rollout(m: EnvModel, cfg: MPCConfig, state: EnvState,
+                gen: torch.Generator, n_steps: int, planner=None):
+    """Receding-horizon loop of one env from init_plan's zero mean: replan
+    → apply the first action (core.step_physics_only, one `step` launch)
+    → shift. Returns (final state, actions (T, A), rewards (T,), best
+    costs (T,)). `planner(state, plan, gen)` defaults to `plan`."""
+    do_plan = planner if planner is not None else (
+        lambda st, pl, g: plan(m, cfg, st, pl, g))
+    pl = init_plan(m, cfg, device=state.q.device)
+    acts, rs, bests = [], [], []
+    for _ in range(n_steps):
+        pl, best = do_plan(state, pl, gen)
+        a = pl.mean[0]
+        state = core.step_physics_only(m, state, a[None])
+        ag = achieved_goal(m.cfg, m.tree, m.arm, state)
+        rs.append(compute_reward(m.cfg, ag, state.goal)[0])
+        acts.append(a)
+        bests.append(best)
+        pl = shift_plan(pl, cfg)
+    return state, torch.stack(acts), torch.stack(rs), torch.stack(bests)
 
 
 def _preview(m: EnvModel, cfg: MPCConfig, backend: str,

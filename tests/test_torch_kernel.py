@@ -117,3 +117,28 @@ def test_step_kernel_matches_plain(cuda, env_id):
         ref = fs.make_reference_step(*m, n_substeps=3)(X, acts)
     torch.cuda.synchronize()
     _assert_twin_bounds(m, out, ref)
+
+
+@pytest.mark.parametrize("env_id", ["UR5PlayAbsRPY1Obj-v0", "pandaPlay-v0"])
+def test_step_kernel_hands_back_its_control(cuda, env_id):
+    """with_ctrl: the same launch writes the servo targets and gripper
+    command it chose (the env step's ctrl_q and grip), at the control
+    bounds of the plain control, and the state equals the plain step."""
+    z = tp.load(f"sim3_{tp.key(env_id)}")
+    m = core.build_model(CATALOG[env_id])
+    X = torch.tensor(z["X"], device=cuda)
+    rs = np.random.RandomState(1)
+    acts = torch.tensor(rs.uniform(-0.25, 0.25, (m.cfg.action_dim, X.shape[1])),
+                        dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        out, C = fs.make_cuda_step(*m, n_substeps=3, with_ctrl=True)(X, acts)
+        ref, Cp = fs.make_reference_step(*m, n_substeps=3, with_ctrl=True)(
+            X, acts)
+        plain = fs.make_cuda_step(*m, n_substeps=3)(X, acts)
+    torch.cuda.synchronize()
+    assert C.shape == (m.arm.n_arm + 1, X.shape[1])
+    assert torch.equal(out, plain)
+    _assert_twin_bounds(m, out, ref)
+    d = (C - Cp).abs().flatten().cpu().numpy()
+    assert np.quantile(d, 0.99) <= 1e-3 and d.max() <= 0.1, d.max()
+    assert torch.equal(C[-1], acts[-1].clamp(-1.0, 1.0))

@@ -27,7 +27,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    for name in ("ops.fused_step", "solver.mpc", "solver.cost", "envs.obs"):
+    for name in ("ops.fused_step", "solver.mpc", "solver.cost", "envs.obs",
+                 "envs.core", "envs.wrapper", "envs.physics", "gym_registry",
+                 "parallel.rollout", "utils.spaces", "utils.render"):
         assert f"roboticsplayroompybullet_torch.{name}" in mods, name
     code = (
         "import sys\n"
@@ -71,6 +73,8 @@ def test_cuda_kernels_raise_on_cpu_tensors():
     m, X, A = _cpu_inputs()
     with pytest.raises(ValueError, match="CUDA tensor"):
         fs.make_cuda_step(*m)(X, A)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fs.make_cuda_step(*m, with_ctrl=True)(X, A)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fs.make_cuda_rollout(*m, horizon=1)(X, A[None])
     with pytest.raises(ValueError, match="CUDA tensor"):

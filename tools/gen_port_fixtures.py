@@ -17,9 +17,18 @@ of them changes.
     python tools/gen_port_fixtures.py --only sim3_UR5Reach step12
 
 All inputs come from numpy seeds, except the UR5PlayAbsRPY1Obj start states,
-which are a jitted batched_reset (the port has no reset yet), and the MPC
-normals, which jax.random draws and the fixture stores. The physics fixtures
-are B=128; the MPC ones (mpc_*) are as small as their cases allow.
+which are a jitted batched_reset, the MPC normals and the reset's goal
+draws, which jax.random draws and the fixture stores, and the env fixtures
+(golden_lane_*, proprio), which start from the golden files' injected
+states (tests/golden/*.npz). The physics fixtures are B=128; the MPC ones
+(mpc_*) are as small as their cases allow.
+
+    python tools/gen_port_fixtures.py --only $(python tools/gen_port_fixtures.py --list | grep golden_lane)
+
+writes the 19 lane replays of the goldens (LANE_STEPS: 2-3 min each on a
+CPU for a UR5 id, about as long for the first step of a Panda id; XLA's
+compile and the Panda step use every core, so pin parallel processes to
+their own cores with taskset).
 """
 from __future__ import annotations
 
@@ -69,7 +78,11 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/solver/mpc.py",
      "roboticsplayroompybullet_tpu/envs/obs.py",
      "roboticsplayroompybullet_tpu/ops/dynamics.py",
-     "roboticsplayroompybullet_tpu/ops/spatial.py"]
+     "roboticsplayroompybullet_tpu/ops/spatial.py",
+     "roboticsplayroompybullet_tpu/ops/kinematics.py",
+     "roboticsplayroompybullet_tpu/envs/core.py",
+     "roboticsplayroompybullet_tpu/envs/physics.py",
+     "roboticsplayroompybullet_tpu/utils/render.py"]
     + [os.path.relpath(p, ROOT) for p in glob.glob(
         os.path.join(ROOT, "roboticsplayroompybullet_tpu/models/*.py"))])
 
@@ -510,13 +523,229 @@ def make_mpc_loop():
           **{k: np.int32(v) for k, v in MPC_LOOP.items()})
 
 
+# ---------------------------------------------------------------------------
+# the env layer (envs/core.py, envs/obs.py, solver/mpc.py's mpc_rollout)
+# ---------------------------------------------------------------------------
+
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+OBS_KEYS = ("obs_quat", "achieved_goal", "desired_goal",
+            "controllable_achieved_goal", "full_positional_state", "joints",
+            "velocity", "observation", "gripper_proprioception")
+# tests/test_golden.py:63-77
+GOLDEN_BOUNDS = dict(ee=2e-3, ag=5e-3, q=2e-2)
+# JAX's mpc_rollout (the non-fused planner on core.step_physics_only) on
+# UR5Reach, at a size the CPU runs in seconds
+MPC_PLAN_LOOP = dict(horizon=2, pop=8, iters=2, n_steps=2, n_substeps=1)
+
+
+def golden(env_id: str) -> dict:
+    with np.load(os.path.join(GOLDEN_DIR,
+                              env_id.replace("-", "_") + ".npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def reset_goal_draws(cfg, key) -> dict:
+    """The draws core.reset's reset_goal makes from `key` (its 4th split):
+    play → the perturbed dim and its U(0, 1) offset; else one U(0, 1)^3
+    per goal, before the scaling to the goal range."""
+    k3 = jax.random.split(key, 4)[3]
+    if cfg.play:
+        k1, k2 = jax.random.split(k3)
+        return {"goal_idx": np.int32(jax.random.randint(k1, (), 0,
+                                                        cfg.goal_dim)),
+                "goal_u": np.asarray(jax.random.uniform(k2, (), jnp.float32))}
+    keys = jax.random.split(k3, cfg.num_goals)
+    return {"goal_u": np.stack([np.asarray(jax.random.uniform(
+        k, (3,), jnp.float32)) for k in keys])}
+
+
+def _obs_fn(m):
+    from roboticsplayroompybullet_tpu.envs import obs as O
+    return jax.jit(lambda s: O.calc_obs(m.cfg, m.tree, m.arm, m.scene, s))
+
+
+def _obs_out(prefix: str, o: dict) -> dict:
+    return {f"{prefix}_{k}": np.asarray(o[k]) for k in OBS_KEYS}
+
+
+# control steps of each golden the lane replay records: all 25 for the
+# UR5 ids; the first only for the Panda ids, whose JAX lane step takes
+# ~280 core-seconds a call at B=128 on a CPU (~70 s on 8 cores; the UR5's
+# takes about a second), so 25 of them are ~30 min an id; all 25 for the
+# Panda ids whose replay through the port leaves the golden's bounds
+LANE_STEPS = {"UR5": 25, "Panda": 1}
+FULL_LANE_IDS = ("pandaReach-v0", "pandaPlayRelRPY1Obj-v0")
+
+
+def make_golden_lane(env_id: str):
+    """One golden's replay through the JAX package's lane twin
+    (make_reference_step, on B=128 tiled copies of the one env, the first
+    LANE_STEPS[arm] of its 25 steps, or all of them for FULL_LANE_IDS)
+    from JAX's core.reset(o=g["o0"]),
+    with calc_obs and the continuity
+    buffers after every step as core.step threads them. Records the reset
+    state, its obs and goal draws; per step the packed X, ee, ag and q; the
+    full obs of the first step's state and of that state with negated
+    continuity buffers (so the play envs' _flip_quats fires); and the
+    replay's own distance to the golden."""
+    cfg = CATALOG[env_id]
+    m = core.build_model(cfg)
+    g = golden(env_id)
+    key = jax.random.PRNGKey(0)
+    st0, obs0 = jax.jit(lambda k, o: core.reset(m, k, o))(
+        key, jnp.asarray(g["o0"]))
+    calc = _obs_fn(m)
+    tile = lambda x: jnp.broadcast_to(x, (B,) + x.shape)  # noqa: E731
+    first = jax.jit(lambda X, st: jax.tree.map(
+        lambda v: v[0], fs.unpack_state(cfg, m.tree, X,
+                                        jax.tree.map(tile, st))))
+    X0 = np.asarray(fs.pack_state(cfg, m.tree, jax.tree.map(tile, st0)))
+    # compiled once, ahead of time: a jitted call may trace and compile
+    # again on a later step's inputs, at a minute or two each
+    A_ = jax.ShapeDtypeStruct((cfg.action_dim, B), jnp.float32)
+    step_B = jax.jit(fs.make_reference_step(
+        m.cfg, m.tree, m.arm, m.scene)).lower(
+        jax.ShapeDtypeStruct(X0.shape, jnp.float32), A_).compile()
+    X = jnp.asarray(X0, jnp.float32)
+    X0 = X0[:, 0]
+    st = st0
+    Xs, ee, ag, q = [], [], [], []
+    out = {}
+    n = len(g["actions"]) if env_id in FULL_LANE_IDS else \
+        LANE_STEPS[cfg.arm]
+    for t, a in enumerate(g["actions"][:n]):
+        t0 = time.time()
+        X = step_B(X, jnp.asarray(np.broadcast_to(
+            np.asarray(a, np.float32)[:, None], (a.shape[0], B))))
+        Xn = np.asarray(X)
+        assert (Xn == Xn[:, :1]).all(), (env_id, t)
+        st = first(X, st)
+        o = calc(st)
+        st = st.replace(prev_obs=o["_prev_obs"], prev_ag=o["_prev_ag"],
+                        has_prev=jnp.ones((), bool),
+                        t=(st.t + 1).astype(jnp.int32))
+        if t == 0:
+            out.update(_obs_out("obs1", o))
+            out.update({f"st1_{k}": v for k, v in _state_dict(st).items()})
+            flip = st.replace(prev_obs=-o["obs_quat"],
+                              prev_ag=-o["achieved_goal"])
+            out.update(_obs_out("flip", calc(flip)))
+        Xs.append(Xn[:, 0])
+        ee.append(np.asarray(o["controllable_achieved_goal"][:3]))
+        ag.append(np.asarray(o["achieved_goal"]))
+        q.append(np.asarray(st.q))
+        print(f"{env_id} step {t + 1}: {time.time() - t0:.1f} s", flush=True)
+    Xs, ee, ag, q = map(np.stack, (Xs, ee, ag, q))
+    T = len(Xs)
+    err = {"ee": np.linalg.norm(ee - g["ee"][:T], axis=-1),
+           "ag": np.abs(ag - g["ag"][:T]).max(-1),
+           "q": np.abs(q - g["q"][:T]).max(-1)}
+    for k, e in err.items():
+        t = int(np.argmax(e))
+        print(f"{env_id} lane vs golden {k}: max {e.max():.3e} at step "
+              f"{t + 1} (bound {GOLDEN_BOUNDS[k]:g})", flush=True)
+    _save(f"golden_lane_{_key(env_id)}", o0=g["o0"], actions=g["actions"],
+          X0=X0, X=Xs, ee=ee, ag=ag, q=q,
+          **{f"err_{k}": v for k, v in err.items()},
+          **{f"reset_{k}": v for k, v in _state_dict(st0).items()},
+          **_obs_out("reset", obs0), **reset_goal_draws(cfg, key), **out)
+
+
+def make_proprio():
+    """calc_obs's gripper proprioception on the cases of
+    tests/test_proprioception.py, from the flagship's and the Panda
+    flagship's reset(o=golden o0) states: a block on the ray segment but
+    off the inter-pad midpoint, the block far away, and the Panda."""
+    from roboticsplayroompybullet_tpu.envs import obs as O
+    from roboticsplayroompybullet_tpu.ops import dynamics as dyn
+    from roboticsplayroompybullet_tpu.ops import spatial as sp
+    out = {}
+    for name, env_id in (("ur5", FLAGSHIP), ("panda",
+                                             "pandaPlayAbsRPY1Obj-v0")):
+        m = core.build_model(CATALOG[env_id])
+        st, _ = jax.jit(lambda k, o: core.reset(m, k, o))(
+            jax.random.PRNGKey(0), jnp.asarray(golden(env_id)["o0"]))
+        calc = _obs_fn(m)
+        cases = {"rest": st}
+        if name == "ur5":
+            # the segment of obs._proprioception, as the JAX test builds it
+            kin = dyn.fk_vel(m.tree, st.q, st.qd)
+            centers = []
+            for site, off, _r in m.arm.pad_spheres:
+                par = m.tree.site_parent[site]
+                spos, squat = sp.transform_compose(
+                    kin.pos[par], kin.quat[par], m.tree.site_pos[site],
+                    m.tree.site_quat[site])
+                centers.append(spos + sp.quat_rotate(
+                    squat, jnp.asarray(off, jnp.float32)))
+            avg_pad = jnp.mean(jnp.stack(centers), axis=0)
+            ee_pos = O.ee_state(m.tree, m.arm, kin)[0]
+            wrist = kin.pos[int(m.tree.parent[m.tree.site_parent[
+                m.arm.ee_site]])]
+            p1 = ee_pos - (ee_pos - wrist) * 0.5
+            p2 = avg_pad + (ee_pos - wrist) * 0.2
+            c = p1 + 0.25 * (p2 - p1)
+            assert float(jnp.linalg.norm(c - avg_pad)) > float(
+                np.max(m.scene.block_half)) + 0.01
+            ident = jnp.array([0.0, 0.0, 0.0, 1.0], jnp.float32)
+            cases = {"on_ray": st.replace(
+                obj_pos=st.obj_pos.at[0].set(c),
+                obj_quat=st.obj_quat.at[0].set(ident)),
+                "far": st.replace(obj_pos=st.obj_pos.at[0].set(
+                    jnp.array([5.0, 5.0, 5.0], jnp.float32)))}
+        for case, s in cases.items():
+            out.update({f"{name}_{case}_{k}": v
+                        for k, v in _state_dict(s).items()})
+            out[f"{name}_{case}_prop"] = np.asarray(
+                calc(s)["gripper_proprioception"])
+            print(name, case, out[f"{name}_{case}_prop"], flush=True)
+    _save("proprio", **out)
+
+
+def make_mpc_plan_loop():
+    """JAX's mpc_rollout (the single-device `plan` on
+    core.step_physics_only) on the first UR5Reach start state of the
+    rollout_UR5Reach fixture, from init_plan's zero mean, by MPPI and by
+    CEM, at MPC_PLAN_LOOP's size. The normals each replan iteration draws
+    are stored, so the port's loop can run on them."""
+    _, mpc = _mpc()
+    cfg = dataclasses.replace(CATALOG["UR5Reach-v0"],
+                              substeps=MPC_PLAN_LOOP["n_substeps"])
+    m = core.build_model(cfg)
+    H, pop, iters, T = (MPC_PLAN_LOOP[k] for k in ("horizon", "pop",
+                                                   "iters", "n_steps"))
+    with np.load(os.path.join(OUT, "rollout_UR5Reach.npz")) as z:
+        d = {f: z[f"in_{f}"][0] for f in STATE_FIELDS}
+    key = jax.random.PRNGKey(10)
+    normals = np.stack([np.stack([
+        np.asarray(jax.random.normal(ki, (pop, H, cfg.action_dim),
+                                     jnp.float32))
+        for ki in jax.random.split(kt, iters)])
+        for kt in jax.random.split(key, T)])         # (T, iters, pop, H, A)
+    out = {f"in_{k}": v for k, v in d.items()}
+    for algo in ("mppi", "cem"):
+        mcfg = mpc.MPCConfig(horizon=H, pop=pop, iters=iters, algorithm=algo)
+        fin, acts, rews, bests = jax.jit(
+            lambda s, k: mpc.mpc_rollout(m, mcfg, s, k, T))(_state_of(d), key)
+        out.update({f"{algo}_out_{k}": v
+                    for k, v in _state_dict(fin).items()})
+        out.update({f"{algo}_actions": acts, f"{algo}_rewards": rews,
+                    f"{algo}_bests": bests})
+    _save("mpc_plan_loop_UR5Reach", normals=normals, **out,
+          **{k: np.int32(v) for k, v in MPC_PLAN_LOOP.items()})
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
            f"step12_{_key(FLAGSHIP)}": make_step12, "rewards": make_rewards,
            "mpc_cost": make_mpc_cost, "mpc_init": make_mpc_init,
            "mpc_sample": make_mpc_sample, "mpc_update": make_mpc_update,
            f"mpc_step_{_key(FLAGSHIP)}": make_mpc_step,
-           "mpc_loop_UR5Reach": make_mpc_loop}
+           "mpc_loop_UR5Reach": make_mpc_loop,
+           "mpc_plan_loop_UR5Reach": make_mpc_plan_loop,
+           "proprio": make_proprio}
+    for e in CATALOG:
+        out[f"golden_lane_{_key(e)}"] = (lambda e=e: make_golden_lane(e))
     for e in SIM3_ENVS:
         out[f"sim3_{_key(e)}"] = (lambda e=e: make_sim3(e))
     for e in CONTROL_ENVS:
