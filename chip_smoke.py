@@ -53,6 +53,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 if __name__ == "__main__" and not os.path.isdir(
@@ -76,6 +77,7 @@ ROLLOUT_MAX = 0.05                  # rollout ags max (test_fused.py:206-211)
 MAX_FLIPS = 4                       # envs a step may leave the bounds above
 MAX_STACK = 1024                    # bytes of stack frame a kernel may use
 PEAK_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
+PEAK_FLOPS64 = 34e12                # and float64 (NVIDIA's H100 data sheet)
 PEAK_BYTES = 3.35e12                # H100 SXM HBM3 bytes/s
 RESULTS = {}
 
@@ -224,12 +226,12 @@ def flagship_states(B, dev, seed):
 
 
 def work(m, B, H, ik_iters=None, solve_iters=8):
-    """(FLOPs, bytes) of each kernel's call on the main path's shapes: sim
-    (B envs, 12 substeps), step (control + 12 substeps) and rollout (H
-    steps + ags), counted per phase from the source and this model's
-    static row table, link types and ancestors (PERF.md §6 gives the
-    per-phase formulas). Each input byte is read once, each output byte
-    written once."""
+    """(float32 FLOPs, float64 FLOPs, bytes) of each kernel's call on the
+    main path's shapes: sim (B envs, 12 substeps), step (control + 12
+    substeps) and rollout (H steps + ags), counted per phase from the
+    source and this model's static row table, link types and ancestors
+    (PERF.md §6 gives the per-phase formulas); control runs in float64.
+    Each input byte is read once, each output byte written once."""
     from roboticsplayroompybullet_torch.ops import cuda_build
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     ik = fs.default_ik_iters(m.arm) if ik_iters is None else ik_iters
@@ -290,15 +292,17 @@ def work(m, B, H, ik_iters=None, solve_iters=8):
     _, ag = fs.ag_layout(m.cfg, m.tree)
     sim = v["n_sub"] * substep
     A, f4 = v["action_dim"], 4
-    return {"sim": (B * sim, f4 * B * (2 * nf + na + 1)),
-            "step": (B * (control + sim), f4 * B * (2 * nf + A)),
-            "rollout": (B * H * (control + sim + 4),
+    return {"sim": (B * sim, 0, f4 * B * (2 * nf + na + 1)),
+            "step": (B * sim, B * control, f4 * B * (2 * nf + A)),
+            "rollout": (B * H * (sim + 4), B * H * control,
                         f4 * B * (2 * nf + H * (A + ag)))}
 
 
-def bound_ms(flops, nbytes):
-    """(ms, "operations" or "bytes"): the least time the card could take."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, flops64, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the float32 and float64 pipes (separate units) each at its peak."""
+    t_ops = max(flops / PEAK_FLOPS, flops64 / PEAK_FLOPS64)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1317,9 +1321,10 @@ def mpc_timing_phase(dev, p):
 GOLDEN_BOUNDS = dict(ee=2e-3, ag=5e-3, q=2e-2)   # tests/test_golden.py:63-77
 ENV_B, ENV_STEPS, OOB_B = 4096, 10, 1024
 RESET_ENVS = (FLAGSHIP, "pandaPlay-v0")         # 1 block; 2 (block-block)
-SETTLE_HELD = FLAGSHIP         # whose first settle launch meets the plain
+SETTLE_HELD = "pandaPlay-v0"    # whose first settle launch meets the plain
 TABLE_TOP = -0.025             # play scene: static box 0's top face
-MIN_ON_TABLE = 0.75            # share of blocks a reset leaves on it
+MOVING = 1e-2                  # m/s: a block on the table still sliding
+SETTLE_JAX_POS = 1e-3          # m: a settled block against JAX's
 # the UR5Reach MPC demo (tests/test_solver.py:75-91: MPPI, sigma 0.35, 14
 # steps) at H=10 and 256 candidates
 PLAN_LOOP_CFG = dict(horizon=10, pop=256, iters=2, algorithm="mppi",
@@ -1342,16 +1347,13 @@ def env_golden_phase(dev):
     """PlayEnv on the card replays the 19 goldens (reset(o=o0), 25 steps,
     the step kernel at B=1). Free-running, ee / ag / q against the golden
     at tests/test_golden.py's bounds, held for each id and quantity where
-    the JAX lane twin's own replay (the golden_lane fixture: 25 steps of a
-    UR5 id, the first of most Panda ids) keeps them and no teacher-forced
-    step leaves the one-step bounds (past such a branch two float32
-    roundings part, as at H=40); elsewhere printed as a known divergence.
+    the JAX lane twin's own replay (the golden_lane fixture, 25 steps)
+    keeps them; elsewhere printed as a known divergence (ROADMAP Queue 3).
     Teacher-forced, from each of the JAX lane replay's states one
-    step-kernel launch (all of an id's in one launch)
-    against the replay's next state at the one-step bounds; a step outside
-    them is stepped again by the plain twin in float64 and counts against
-    the kernel where the kernel is farther from it than JAX's lane twin
-    (at most MAX_FLIPS such steps an id)."""
+    step-kernel launch (all of an id's in one launch) against the replay's
+    next state at the one-step bounds; a step outside them is stepped again
+    by the plain twin in float64 and fails the phase where the kernel is
+    farther from that step than JAX's lane twin (float32) is."""
     import _torch_port as tp
     from roboticsplayroompybullet_torch.envs import wrapper
     from roboticsplayroompybullet_torch.envs.config import CATALOG
@@ -1393,10 +1395,9 @@ def env_golden_phase(dev):
                    "ag": float(np.abs(ag - g["ag"][:T_]).max()),
                    "q": float(np.abs(q - g["q"][:T_]).max())}
         lane = {k: float(z[f"err_{k}"].max()) for k in err}
-        TL = len(z["X"])          # the steps the JAX lane replay holds
         X0 = torch.tensor(np.concatenate([z["X0"][None], z["X"][:-1]]).T,
                           device=dev).contiguous()
-        acts = torch.tensor(z["actions"][:TL].T, device=dev).contiguous()
+        acts = torch.tensor(z["actions"].T, device=dev).contiguous()
         XJ = torch.tensor(z["X"].T, device=dev)
         pos_rows = position_rows(m.cfg, m.tree, dev)
         with torch.no_grad():
@@ -1405,44 +1406,39 @@ def env_golden_phase(dev):
             # plain twin in float64: it counts against the kernel only where
             # the kernel is farther from that step than JAX's lane twin
             out = torch.nonzero(env_error(Xk, XJ, pos_rows) > 1).flatten()
-            against = []
+            witness = []
             if len(out):
                 Y64 = fs.make_reference_step(*m)(X0[:, out].double(),
                                                  acts[:, out].double())
                 ek = env_error(Xk[:, out], Y64, pos_rows)
                 ej = env_error(XJ[:, out], Y64, pos_rows)
-                against = [(int(t) + 1, float(a), float(b))
-                           for t, a, b in zip(out, ek, ej) if a > b]
+                witness = [(int(t) + 1, float(a), float(b))
+                           for t, a, b in zip(out, ek, ej)]
+            against = [w for w in witness if w[1] > w[2]]
         torch.cuda.synchronize()
         diffs = field_diffs(m.cfg, m.tree, Xk, XJ)
-        # free-running, two float32 roundings part at a branch (an IK fixed
-        # point, a contact): past a teacher-forced step outside the
-        # one-step bounds the free-running comparison measures that, so it
-        # is held only where there is none and the JAX lane replay keeps
-        # the golden's bound
-        held = {k: lane[k] < GOLDEN_BOUNDS[k] and not len(out)
-                for k in err}
+        held = {k: lane[k] < GOLDEN_BOUNDS[k] for k in err}
         free_bad = [k for k in err if held[k]
                     and not err[k] < GOLDEN_BOUNDS[k]]
         say(f"[env golden] {env_id}: free-running vs golden " + ", ".join(
             f"{k} {err[k]:.3e} (JAX lane {lane[k]:.3e}, "
             + (f"<{GOLDEN_BOUNDS[k]:g})" if held[k] else
-               "not held: " + ("a float32 branch, teacher-forced below)"
-                               if len(out) else "known divergence)"))
+               "not held: known divergence)")
             for k in err)
-            + f"; teacher-forced vs JAX lane, worst of {TL} steps: "
+            + f"; teacher-forced vs JAX lane, worst of {len(ee)} steps: "
             + ", ".join(f"{k} {v[0]:.2e}" for k, v in diffs.items())
-            + f"; steps outside the one-step bounds {(out + 1).tolist()}, "
-            "of them farther from the float64 step than JAX's (step, "
-            f"kernel, JAX, in units of the bounds) {against} "
-            f"(<={MAX_FLIPS}) "
-            f"{'ok' if not free_bad and len(against) <= MAX_FLIPS else 'FAIL'}")
+            + "; steps outside the one-step bounds, each (step, kernel and "
+            "JAX from the float64 step in units of the bounds): "
+            + (", ".join(f"({t}, {a:.3f}, {b:.3f})" for t, a, b in witness)
+               or "none")
+            + f"; kernel farther {len(against)} (none) "
+            f"{'ok' if not free_bad and not against else 'FAIL'}")
         rows[env_id] = {"free": err, "jax_lane": lane, "held": held,
                         "teacher_forced": {k: {"max": v[0], "p99": v[1]}
                                            for k, v in diffs.items()},
-                        "steps_outside": (out + 1).tolist(),
+                        "steps_outside": witness,
                         "against_kernel": against}
-        if free_bad or len(against) > MAX_FLIPS:
+        if free_bad or against:
             bad.append((env_id, free_bad, against))
     record("env_golden", {"launches": launches, "seconds": secs,
                           "ids": rows})
@@ -1451,54 +1447,128 @@ def env_golden_phase(dev):
     return launches
 
 
-def _blocks_rest(tag, m, st):
-    """Settled blocks. The reference places a block turned 90° about z
-    (its long side along y) anywhere in y ∈ [0, 0.3], so one placed near
-    y = 0 overhangs the table's front edge and tips off; with two blocks,
-    placed independently at heights 3 cm apart (a block is 5 cm tall), an
-    overlapping pair is pushed apart. Such blocks are still moving when
-    the 1/3 s settle ends. Held: no block sunk into the floor by more than
-    a quarter of its height (one that tipped off may be landing), at
-    least MIN_ON_TABLE of them resting on the table top (centre within
-    5 mm of half a block above it), and the median speed of those under
-    1 cm/s; the p99 speed is printed."""
-    z = st.obj_pos[..., 2]
+def _blocks(m, st):
+    """(on the table top: centre within 5 mm of half a block above it,
+    moving: on it and faster than MOVING, the lowest centre z) of the
+    settled blocks of st, flattened over envs and blocks."""
+    z = st.obj_pos[..., 2].flatten()
     hz = float(m.scene.block_half[2])
-    speed = torch.linalg.vector_norm(st.obj_vel, dim=-1)
+    speed = torch.linalg.vector_norm(st.obj_vel, dim=-1).flatten()
     on = (z - (TABLE_TOP + hz)).abs() < 5e-3
-    rest = speed[on]
-    q = (lambda p: float(torch.quantile(rest, p))  # noqa: E731
-         if rest.numel() else float("nan"))
-    out = {"z_min": float(z.min()), "z_max": float(z.max()),
-           "on_table": float(on.float().mean()),
-           "on_table_speed_p50": q(0.5), "on_table_speed_p99": q(0.99)}
-    say(f"[{tag}] blocks: z in [{out['z_min']:.4f}, {out['z_max']:.4f}] m, "
-        f"{100 * out['on_table']:.2f} % resting on the table top (>= "
-        f"{100 * MIN_ON_TABLE:g} %), their speed p50 "
-        f"{out['on_table_speed_p50']:.2e} (<=1e-2) p99 "
-        f"{out['on_table_speed_p99']:.2e} m/s")
-    if (out["z_min"] < float(m.scene.plane_z) + hz / 2
-            or out["on_table"] < MIN_ON_TABLE
-            or not out["on_table_speed_p50"] <= 1e-2):
-        raise AssertionError(f"{tag}: blocks not resting on the table")
+    return on, on & (speed > MOVING), float(z.min())
+
+
+def _shares_like_jax(tag, m, st, jax_shares, two_sided):
+    """The share of blocks on the table top and, of those, the share still
+    moving, against JAX's random placement and settle (the settle
+    fixture): two-sided within 3 sigma of the two binomial samples for a
+    single placement, which JAX's is; for a whole reset (its re-place loop
+    may only take blocks that settled out of bounds off the floor) the
+    share on the table at least JAX's less 3 sigma and the moving share at
+    most JAX's plus 3 sigma. No block sunk into the floor by more than a
+    quarter of its height (one that tipped off the table may be
+    landing)."""
+    on, moving, z_min = _blocks(m, st)
+    hz = float(m.scene.block_half[2])
+    out, bad = {"z_min": z_min}, z_min < float(m.scene.plane_z) + hz / 2
+    for name, k, n_k, (p_j, n_j) in (
+            ("on the table", int(on.sum()), on.numel(), jax_shares["on"]),
+            ("of them moving", int(moving.sum()), int(on.sum()),
+             jax_shares["moving"])):
+        p_k = k / n_k
+        pool = (p_k * n_k + p_j * n_j) / (n_k + n_j)
+        sig = (pool * (1 - pool) * (1 / n_k + 1 / n_j)) ** 0.5
+        lo, hi = max(p_j - 3 * sig, 0.0), min(p_j + 3 * sig, 1.0)
+        if not two_sided:
+            lo, hi = (lo, 1.0) if name == "on the table" else (0.0, hi)
+        ok = lo <= p_k <= hi
+        bad |= not ok
+        out[name] = {"share": p_k, "n": n_k, "jax": p_j, "jax_n": n_j,
+                     "lo": lo, "hi": hi}
+        say(f"[{tag}] blocks {name}: {100 * p_k:.2f} % of {n_k} (JAX "
+            f"{100 * p_j:.2f} % of {n_j}; held in [{100 * lo:.2f}, "
+            f"{100 * hi:.2f}] %) {'ok' if ok else 'FAIL'}")
+    say(f"[{tag}] blocks: lowest centre z {z_min:.4f} m (floor "
+        f"{float(m.scene.plane_z):.4f})")
+    if bad:
+        raise AssertionError(f"{tag}: settled blocks unlike JAX's: {out}")
     return out
+
+
+def settle_vs_jax(dev, env_id):
+    """reset's placement and settle (core._place_and_settle: one sim-kernel
+    launch of 100 substeps) on the settle fixture's envs, with the U(0, 1)
+    draws jax.random made patched into core._uniform, against JAX's settle
+    of the same placements (its oracle physics): every block on the table
+    top where JAX's is and nowhere else, and within SETTLE_JAX_POS of
+    JAX's position, in all but ceil(MAX_FLIPS * B / ENV_B) envs (the
+    share of envs a B=4096 launch may leave the one-step bounds of the
+    plain twin through float32 reordering). Returns JAX's shares of blocks
+    on the table and moving ({name: (share, n)})."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    z = tp.load(f"settle_{tp.key(env_id)}")
+    m = core.build_model(CATALOG[env_id])
+    u = torch.tensor(z["u"], device=dev)
+    B = u.shape[0]
+    uniform = core._uniform
+    core._uniform = lambda gen, shape, device: u.reshape(shape)
+    try:
+        with torch.no_grad():
+            st = core._place_and_settle(m, core._default_state(m, B, dev),
+                                        None)
+    finally:
+        core._uniform = uniform
+    jst = SimpleNamespace(obj_pos=torch.tensor(z["out_obj_pos"],
+                                               device=dev),
+                          obj_vel=torch.tensor(z["out_obj_vel"], device=dev))
+    on_j, mov_j, _ = _blocks(m, jst)
+    on_k, _, _ = _blocks(m, st)
+    no = m.cfg.num_objects
+    dpos = torch.linalg.vector_norm(st.obj_pos - jst.obj_pos, dim=-1)
+    env_bad = ((on_k != on_j).reshape(B, no).any(-1)
+               | (dpos > SETTLE_JAX_POS).any(-1))
+    allow = -(-MAX_FLIPS * B // ENV_B)
+    n_bad = int(env_bad.sum())
+    jax_shares = {"on": (float(on_j.float().mean()), on_j.numel()),
+                  "moving": (float(mov_j.sum()) / float(on_j.sum()),
+                             int(on_j.sum()))}
+    say(f"[env reset {env_id} settle vs JAX] B={B}, JAX's draws: blocks on "
+        f"the table {int(on_k.sum())} (JAX {int(on_j.sum())}) of "
+        f"{on_j.numel()}, on it in one and not the other "
+        f"{int((on_k != on_j).sum())}; position vs JAX max "
+        f"{float(dpos.max()):.3e} p99 {float(torch.quantile(dpos, 0.99)):.3e}"
+        f" m (<={SETTLE_JAX_POS:g}); envs outside {n_bad} "
+        f"{torch.nonzero(env_bad).flatten().tolist()} (<={allow}) "
+        f"{'ok' if n_bad <= allow else 'FAIL'}")
+    record(f"env reset {env_id} settle vs JAX", {
+        "B": B, "on_table": int(on_k.sum()), "jax_on_table": int(on_j.sum()),
+        "disagree": int((on_k != on_j).sum()), "pos_max": float(dpos.max()),
+        "envs_outside": n_bad, "allowed": allow, "jax_shares": jax_shares})
+    if n_bad > allow:
+        raise AssertionError(f"{env_id}: settle unlike JAX's in {n_bad} "
+                             "envs")
+    return jax_shares
 
 
 def env_reset_phase(dev):
     """batched_reset at B=4096 on the flagship and the 2-block pandaPlay,
     with the launch counts read around it: every object in bounds, every
-    reward −1, the blocks resting on the table, and the attempts taken.
-    SETTLE_HELD's first settle launch (the sim kernel, 100 substeps, at its
-    own B) is held to the plain twin, teacher-forced-step style: each
-    field's p99 within the one-step bounds, positions within ROLLOUT_MAX,
-    and at most MAX_FLIPS envs outside the one-step bounds (a resting
-    block's angular velocity flips under rounding, bench.py:258-263; a
-    tipping block's path is chaotic) or, past that, at most MAX_FLIPS of
-    them farther from the plain twin's float64 settle than its float32
-    one is. Then the
-    out-of-bounds case of tests/test_env.py:140-167 (pandaPush with
-    env_range_high.x = 0) at B=1024 must end in bounds, and the flagship's
-    reset is timed."""
+    reward −1, and the attempts taken. The settle against JAX's
+    (settle_vs_jax, on JAX's own draws), then the blocks of the first
+    settle launch (one placement of all B envs, as JAX's fixture is) and
+    of the finished reset against JAX's shares on the table and moving
+    (_shares_like_jax). SETTLE_HELD's first settle launch (the sim kernel,
+    100 substeps, at its own B) is held to the plain twin,
+    teacher-forced-step style: each field's p99 within the one-step
+    bounds, positions within ROLLOUT_MAX, and at most MAX_FLIPS envs
+    outside the one-step bounds (a resting block's angular velocity flips
+    under rounding, bench.py:258-263; a tipping block's path is chaotic)
+    or, past that, at most MAX_FLIPS of them farther from the plain twin's
+    float64 settle than its float32 one is. Then the out-of-bounds case of
+    tests/test_env.py:140-167 (pandaPush with env_range_high.x = 0) at
+    B=1024 must end in bounds, and the flagship's reset is timed."""
     import dataclasses
     from roboticsplayroompybullet_torch.envs import core
     from roboticsplayroompybullet_torch.envs.config import CATALOG
@@ -1543,14 +1613,24 @@ def env_reset_phase(dev):
         if launches["sim"] < 1 or oob or row["rewards_not_minus_1"]:
             raise AssertionError(f"{tag}: no settle launch, objects out of "
                                  "bounds or a solved env")
-        if not env_id.startswith("pandaPush"):
-            row["blocks"] = _blocks_rest(tag, m, st)
+        if env_id.startswith("pandaPush"):
+            res[env_id] = row
+            continue
+        c = next(c for c in calls if c["entry"] == "sim")
+        X, ctrl, grip = c["inputs"]
+        with torch.no_grad():
+            Xk = fs.make_cuda_sim(*m, n_substeps=core.SETTLE_SUBSTEPS)(
+                X, ctrl, grip)
+        jax_shares = settle_vs_jax(dev, env_id)
+        first = fs.unpack_state(m.cfg, m.tree, Xk,
+                                core._default_state(m, X.shape[1], dev))
+        row["blocks_first_settle"] = _shares_like_jax(
+            f"{tag} first settle launch B={X.shape[1]}", m, first,
+            jax_shares, two_sided=True)
+        row["blocks"] = _shares_like_jax(tag, m, st, jax_shares,
+                                         two_sided=False)
         if env_id == SETTLE_HELD:
-            c = next(c for c in calls if c["entry"] == "sim")
-            X, ctrl, grip = c["inputs"]
             with torch.no_grad():
-                Xk = fs.make_cuda_sim(*m, n_substeps=core.SETTLE_SUBSTEPS)(
-                    X, ctrl, grip)
                 t1 = time.perf_counter()
                 Yp = fs.make_reference_sim(
                     *m, n_substeps=core.SETTLE_SUBSTEPS)(X, ctrl, grip)

@@ -17,7 +17,8 @@
 // against ~1.8 MFLOP of float32 work per env and control step (12 x [FK,
 // ABA over a 12-link tree with 6x6 articulated inertias, ~76 contact rows,
 // 9 Jacobi sweeps] + 24 IK iterations; PERF.md counts it). So the bound is
-// the FP32 pipes. The work is tree-structured recurrence on 6x6 and 3x3
+// the FP32 pipes (control, ~3 % of the FLOPs, runs in double: see
+// control below). The work is tree-structured recurrence on 6x6 and 3x3
 // blocks held at full float32, not matrix products: the tensor cores do
 // not apply (TF32 would drop the precision the twin bounds hold, and 6x6
 // tiles are far below an mma tile), and neither TMA nor cp.async pays for
@@ -49,7 +50,7 @@
 //   entry a lane computes sums in the order the one-thread body did, so
 //   only the sweep's per-body sums and the counts change the order.
 // Occupancy (sm_90a, PERF.md): 249-251 registers a thread, so 8 warps an
-// SM (2 blocks); 31,472 bytes of shared memory a block; B=4096 takes 3.9
+// SM (2 blocks); 37,696 bytes of shared memory a block; B=4096 takes 3.9
 // waves of 1056 envs. Measured, more resident warps do not help: 3 row
 // slots (168 registers, 12 warps an SM) run no faster, the rows in shared
 // memory (94 registers, 12 warps) 1.7x slower, and B=1024 (one wave)
@@ -162,7 +163,7 @@ FS_DEV int row_vk(int c) { return ((c >> 19) & 7) - 1; }
   A(int, row_code, FS_MAX_ROWS)                                             \
   S(float, dt) S(float, half_dt) S(float, plane_z) S(float, inv_m_blk)      \
   S(float, mu_world) S(float, mu_pad) S(float, mu_art) S(float, mu_bb)      \
-  S(float, ik_damp2) S(float, dial_mul) S(float, dial_div)                  \
+  S(float, dial_mul) S(float, dial_div)                                     \
   A(float, base_pos, 3) A(float, base_quat, 4)                              \
   A(float, pre_pos, FS_MAX_DOF * 3) A(float, pre_quat, FS_MAX_DOF * 4)      \
   A(float, axis, FS_MAX_DOF * 3) A(float, lower, FS_MAX_DOF)                \
@@ -194,11 +195,17 @@ struct Model {
   FS_MODEL_FIELDS(FS_DECL_S, FS_DECL_A)
 };
 
-// One env's working set in shared memory, all float arrays (no padding:
-// ops/cuda_build.py::launch_smem_bytes adds the counts up the same way).
+// One env's working set in shared memory: control's in double (first, so
+// every array stays aligned; see control below), the rest float arrays, no
+// padding (ops/cuda_build.py::launch_smem_bytes lays out the same struct).
 // Row-major flat arrays: pos[3*i + c], IA[36*i + 6*r + c], padJ[(7*p + j)*3
 // + c], ...
 #define FS_ENV_FIELDS(A)                                                    \
+  A(double, dpos, FS_MAX_DOF * 3) A(double, dquat, FS_MAX_DOF * 4)          \
+  A(double, djrot, FS_MAX_DOF * 4)                                          \
+  A(double, tp, 3) A(double, tq, 4) A(double, qs, FS_MAX_DOF)               \
+  A(double, xp, 3) A(double, err, 6) A(double, cols, FS_MAX_ARM * 6)        \
+  A(double, jjt, 36) A(double, jdn, 6) A(double, wsol, 12)                  \
   A(float, q, FS_MAX_DOF) A(float, qd, FS_MAX_DOF)                          \
   A(float, op, FS_MAX_OBJ * 3) A(float, oq, FS_MAX_OBJ * 4)                 \
   A(float, ov, FS_MAX_OBJ * 3) A(float, ow, FS_MAX_OBJ * 3)                 \
@@ -222,10 +229,7 @@ struct Model {
   A(float, vov, FS_MAX_OBJ * 3) A(float, vow, FS_MAX_OBJ * 3)               \
   A(float, vaqd, FS_N_ART) A(float, vgqd, FS_MAX_GRIP)                      \
   A(float, vadqd, FS_MAX_ARM)                                               \
-  A(float, act, FS_MAX_ACT) A(float, ctrl, FS_MAX_ARM) A(float, grip, 1)    \
-  A(float, tp, 3) A(float, tq, 4) A(float, qs, FS_MAX_DOF)                  \
-  A(float, xp, 3) A(float, err, 6) A(float, cols, FS_MAX_ARM * 6)           \
-  A(float, jjt, 36) A(float, jdn, 6) A(float, wsol, 12)
+  A(float, act, FS_MAX_ACT) A(float, ctrl, FS_MAX_ARM) A(float, grip, 1)
 
 struct EnvSh {
   FS_ENV_FIELDS(FS_DECL_A)
@@ -1346,62 +1350,143 @@ FS_DEV void run_sim(const Model& M, EnvSh& S, const Team& T) {
 }
 
 // ---------------------------------------------------------------------------
-// control: action decode + DLS IK (make_lane_control / lane_ik_dls)
+// control: action decode + DLS IK (make_lane_control / lane_ik_dls), in
+// double. The DLS iteration is ill-conditioned where a joint limit or the
+// step clamp cuts it (the Panda at the edge of its reach): there two float32
+// orders of the same sums part by up to 1e-2 rad in the servo targets, and
+// any one of them by as much from the float64 answer. So control, like the
+// plain twin's, widens q and the action, runs in double, and rounds only
+// the servo targets and the gripper command it hands the physics.
 // ---------------------------------------------------------------------------
 
-FS_DEV void quat_from_euler(const float* rpy, float* o) {
-  float r = rpy[0] * 0.5f, p = rpy[1] * 0.5f, y = rpy[2] * 0.5f;
-  float cr = cosf(r), sr = sinf(r), cp = cosf(p), sp = sinf(p);
-  float cy = cosf(y), sy = sinf(y);
+#define FS_IK_DAMP 0.05    // lane_ik_dls's damping and null-space gain
+#define FS_IK_NULL 0.05
+
+FS_DEV double clipd(double x, double lo, double hi) { return fmin(fmax(x, lo), hi); }
+FS_DEV void load3(const float* a, double* o) { o[0] = a[0]; o[1] = a[1]; o[2] = a[2]; }
+FS_DEV void load4(const float* a, double* o) {
+  o[0] = a[0]; o[1] = a[1]; o[2] = a[2]; o[3] = a[3];
+}
+FS_DEV void qmul(const double* a, const double* b, double* o) {
+  double ax = a[0], ay = a[1], az = a[2], aw = a[3];
+  double bx = b[0], by = b[1], bz = b[2], bw = b[3];
+  o[0] = aw * bx + ax * bw + ay * bz - az * by;
+  o[1] = aw * by - ax * bz + ay * bw + az * bx;
+  o[2] = aw * bz + ax * by - ay * bx + az * bw;
+  o[3] = aw * bw - ax * bx - ay * by - az * bz;
+}
+FS_DEV void qnormalize(double* q) {
+  double s = sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3] + 1e-12);
+  q[0] /= s; q[1] /= s; q[2] /= s; q[3] /= s;
+}
+FS_DEV void qrot(const double* q, const double* v, double* o) {
+  double uv = q[0] * v[0] + q[1] * v[1] + q[2] * v[2];
+  double uu = q[0] * q[0] + q[1] * q[1] + q[2] * q[2], w = q[3];
+  double c0 = q[1] * v[2] - q[2] * v[1];
+  double c1 = q[2] * v[0] - q[0] * v[2];
+  double c2 = q[0] * v[1] - q[1] * v[0];
+  double s = w * w - uu;
+  double r0 = (2.0 * uv) * q[0] + s * v[0] + (2.0 * w) * c0;
+  double r1 = (2.0 * uv) * q[1] + s * v[1] + (2.0 * w) * c1;
+  double r2 = (2.0 * uv) * q[2] + s * v[2] + (2.0 * w) * c2;
+  o[0] = r0; o[1] = r1; o[2] = r2;
+}
+
+FS_DEV void quat_from_euler(const double* rpy, double* o) {
+  double r = rpy[0] * 0.5, p = rpy[1] * 0.5, y = rpy[2] * 0.5;
+  double cr = cos(r), sr = sin(r), cp = cos(p), sp = sin(p);
+  double cy = cos(y), sy = sin(y);
   o[0] = sr * cp * cy - cr * sp * sy;
   o[1] = cr * sp * cy + sr * cp * sy;
   o[2] = cr * cp * sy - sr * sp * cy;
   o[3] = cr * cp * cy + sr * sp * sy;
 }
 
-FS_DEV void quat_to_euler(const float* q, float* o) {
-  float x = q[0], y = q[1], z = q[2], w = q[3];
-  o[0] = atan2f(2.0f * (w * x + y * z), 1.0f - 2.0f * (x * x + y * y));
-  o[1] = asinf(clipf(2.0f * (w * y - z * x), (float)(-1.0 + 1e-7),
-                     (float)(1.0 - 1e-7)));
-  o[2] = atan2f(2.0f * (w * z + x * y), 1.0f - 2.0f * (y * y + z * z));
+FS_DEV void quat_to_euler(const double* q, double* o) {
+  double x = q[0], y = q[1], z = q[2], w = q[3];
+  o[0] = atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y));
+  o[1] = asin(clipd(2.0 * (w * y - z * x), -1.0 + 1e-7, 1.0 - 1e-7));
+  o[2] = atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z));
 }
 
-// Cholesky factor of the SPD 6x6 A (_chol6_solve), then one right-hand side
-FS_DEV void chol6_factor(const float* A, float* L) {
-#pragma unroll
-  for (int i = 0; i < 36; ++i) L[i] = 0.0f;
-#pragma unroll
+// link poses 0..nl-1 at S.qs (lane_fk_links) in S.dpos / S.dquat: the
+// lanes make the joint rotations, lane 0 runs the chain
+FS_DEV void fk_links(const Model& M, EnvSh& S, const Team& T, int nl) {
+  for (int i = T.lane; i < nl; i += FS_G) {
+    if (!M.revolute[i]) continue;
+    double half = 0.5 * S.qs[i], sn = sin(half);
+    for (int c = 0; c < 3; ++c) S.djrot[4 * i + c] = M.axis[3 * i + c] * sn;
+    S.djrot[4 * i + 3] = cos(half);
+  }
+  T.sync();
+  if (T.lane == 0) {
+    for (int i = 0; i < nl; ++i) {
+      int p = M.parent[i];
+      double pp[3], pq[4], pre[3], preq[4], t[3], jp[3], jq[4];
+      if (p < 0) {
+        load3(M.base_pos, pp); load4(M.base_quat, pq);
+      } else {
+        for (int c = 0; c < 3; ++c) pp[c] = S.dpos[3 * p + c];
+        for (int c = 0; c < 4; ++c) pq[c] = S.dquat[4 * p + c];
+      }
+      load3(M.pre_pos + 3 * i, pre); load4(M.pre_quat + 4 * i, preq);
+      qrot(pq, pre, t);
+      for (int c = 0; c < 3; ++c) jp[c] = pp[c] + t[c];
+      qmul(pq, preq, jq);
+      if (M.revolute[i]) {
+        double m[4];
+        qmul(jq, S.djrot + 4 * i, m);
+        qnormalize(m);
+        for (int c = 0; c < 4; ++c) jq[c] = m[c];
+      } else {
+        double a[3];
+        for (int c = 0; c < 3; ++c) a[c] = M.axis[3 * i + c] * (double)S.qs[i];
+        qrot(jq, a, t);
+        for (int c = 0; c < 3; ++c) jp[c] += t[c];
+      }
+      for (int c = 0; c < 3; ++c) S.dpos[3 * i + c] = jp[c];
+      for (int c = 0; c < 4; ++c) S.dquat[4 * i + c] = jq[c];
+    }
+  }
+  T.sync();
+}
+
+FS_DEV void site_pose_d(const Model& M, const EnvSh& S, double* xp, double* xq) {
+  int par = M.ee_parent;
+  double ep[3], eq[4], t[3];
+  load3(M.ee_pos, ep); load4(M.ee_quat, eq);
+  qrot(S.dquat + 4 * par, ep, t);
+  for (int c = 0; c < 3; ++c) xp[c] = S.dpos[3 * par + c] + t[c];
+  qmul(S.dquat + 4 * par, eq, xq);
+}
+
+// Cholesky of the SPD 6x6 A in place (_chol6_solve): L in the lower
+// triangle, the upper one left as it was
+FS_DEV void chol6_factor(double* A) {
   for (int j = 0; j < 6; ++j) {
-    float acc = A[j * 6 + j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) acc = acc - L[j * 6 + k] * L[j * 6 + k];
-    float Ljj = sqrtf(fmaxf(acc, 1e-12f));
-    L[j * 6 + j] = Ljj;
-    float inv = 1.0f / Ljj;
-#pragma unroll
+    double acc = A[j * 6 + j];
+    for (int k = 0; k < j; ++k) acc = acc - A[j * 6 + k] * A[j * 6 + k];
+    double Ljj = sqrt(fmax(acc, 1e-12));
+    A[j * 6 + j] = Ljj;
+    double inv = 1.0 / Ljj;
     for (int i = j + 1; i < 6; ++i) {
-      float a = A[i * 6 + j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) a = a - L[i * 6 + k] * L[j * 6 + k];
-      L[i * 6 + j] = a * inv;
+      double a = A[i * 6 + j];
+      for (int k = 0; k < j; ++k) a = a - A[i * 6 + k] * A[j * 6 + k];
+      A[i * 6 + j] = a * inv;
     }
   }
 }
 
-FS_DEV void chol6_solve(const float* L, const float* b, float* x) {
-  float y[6];
-#pragma unroll
+// one right-hand side b through the factor L (lower triangle) into x
+FS_DEV void chol6_solve(const double* L, const double* b, double* x) {
+  double y[6];
   for (int i = 0; i < 6; ++i) {
-    float acc = b[i];
-#pragma unroll
+    double acc = b[i];
     for (int k = 0; k < i; ++k) acc = acc - L[i * 6 + k] * y[k];
     y[i] = acc / L[i * 6 + i];
   }
-#pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float acc = y[i];
-#pragma unroll
+    double acc = y[i];
     for (int k = i + 1; k < 6; ++k) acc = acc - L[k * 6 + i] * x[k];
     x[i] = acc / L[i * 6 + i];
   }
@@ -1413,32 +1498,36 @@ FS_DEV void chol6_solve(const float* L, const float* b, float* x) {
 FS_DEV void ik_dls(const Model& M, EnvSh& S, const Team& T) {
   const int n = M.n_dof, na = M.n_arm;
   for (int it = 0; it < M.ik_iters; ++it) {
-    fk(M, S, T, S.qs, nullptr, M.ee_parent + 1);
+    fk_links(M, S, T, M.ee_parent + 1);
     if (T.lane == 0) {
-      float xp[3], xq[4];
-      site_pose(M, S, xp, xq);
-      float cq[4] = {-xq[0], -xq[1], -xq[2], xq[3]}, dq4[4];
+      double xp[3], xq[4];
+      site_pose_d(M, S, xp, xq);
+      double cq[4] = {-xq[0], -xq[1], -xq[2], xq[3]}, dq4[4];
       qmul(S.tq, cq, dq4);
-      float sgn = signf(dq4[3] + 1e-12f);
+      double e = dq4[3] + 1e-12;
+      double sgn = e > 0.0 ? 1.0 : (e < 0.0 ? -1.0 : 0.0);
       for (int c = 0; c < 3; ++c) {
         S.xp[c] = xp[c];
         S.err[c] = S.tp[c] - xp[c];
-        S.err[c + 3] = 2.0f * dq4[c] * sgn;
+        S.err[c + 3] = 2.0 * dq4[c] * sgn;
       }
     }
     T.sync();
     for (int i = T.lane; i < na; i += FS_G) {
       if (!M.ee_anc[i]) continue;
-      float aw[3];
-      float* col = S.cols + 6 * i;
-      qrot(S.quat + 4 * i, M.axis + 3 * i, aw);
+      double ax[3], aw[3];
+      double* col = S.cols + 6 * i;
+      load3(M.axis + 3 * i, ax);
+      qrot(S.dquat + 4 * i, ax, aw);
       if (M.revolute[i]) {
-        float d[3], lin[3];
-        sub3(S.xp, S.pos + 3 * i, d);
-        cross3(aw, d, lin);
-        for (int c = 0; c < 3; ++c) { col[c] = lin[c]; col[c + 3] = aw[c]; }
+        double d[3];
+        for (int c = 0; c < 3; ++c) d[c] = S.xp[c] - S.dpos[3 * i + c];
+        col[0] = aw[1] * d[2] - aw[2] * d[1];
+        col[1] = aw[2] * d[0] - aw[0] * d[2];
+        col[2] = aw[0] * d[1] - aw[1] * d[0];
+        for (int c = 0; c < 3; ++c) col[c + 3] = aw[c];
       } else {
-        for (int c = 0; c < 3; ++c) { col[c] = aw[c]; col[c + 3] = 0.0f; }
+        for (int c = 0; c < 3; ++c) { col[c] = aw[c]; col[c + 3] = 0.0; }
       }
     }
     T.sync();
@@ -1447,50 +1536,42 @@ FS_DEV void ik_dls(const Model& M, EnvSh& S, const Team& T) {
         int r = 0, e = t;
         while (e >= 6 - r) { e -= 6 - r; ++r; }
         int c = r + e;
-        float acc = r == c ? M.ik_damp2 : 0.0f;
+        double acc = r == c ? FS_IK_DAMP * FS_IK_DAMP : 0.0;
         for (int i = 0; i < na; ++i)
           if (M.ee_anc[i]) acc += S.cols[6 * i + r] * S.cols[6 * i + c];
         S.jjt[r * 6 + c] = acc;
         S.jjt[c * 6 + r] = acc;
       } else {                          // J dq_null, row r
         int r = t - 21;
-        float acc = 0.0f;
+        double acc = 0.0;
         for (int i = 0; i < na; ++i)
-          if (M.ee_anc[i]) acc += S.cols[6 * i + r] * (0.05f * (M.rest[i] - S.qs[i]));
+          if (M.ee_anc[i])
+            acc += S.cols[6 * i + r] * (FS_IK_NULL * ((double)M.rest[i] - S.qs[i]));
         S.jdn[r] = acc;
       }
     }
     T.sync();
     if (T.lane == 0) {
-      float A[36], L[36], b[6], x[6];
-#pragma unroll
-      for (int k = 0; k < 36; ++k) A[k] = S.jjt[k];
-      chol6_factor(A, L);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) b[k] = S.err[k];
-      chol6_solve(L, b, x);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) { S.wsol[k] = x[k]; b[k] = S.jdn[k]; }
-      chol6_solve(L, b, x);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) S.wsol[6 + k] = x[k];
+      chol6_factor(S.jjt);
+      chol6_solve(S.jjt, S.err, S.wsol);
+      chol6_solve(S.jjt, S.jdn, S.wsol + 6);
     }
     T.sync();
     for (int i = T.lane; i < n; i += FS_G) {
-      float qi = S.qs[i];
+      double qi = S.qs[i];
       if (i < na) {
-        float d = 0.05f * (M.rest[i] - qi);
+        double d = FS_IK_NULL * ((double)M.rest[i] - qi);
         if (M.ee_anc[i]) {
-          float je = 0.0f, jn = 0.0f;
+          double je = 0.0, jn = 0.0;
           for (int r = 0; r < 6; ++r) {
             je += S.cols[6 * i + r] * S.wsol[r];
             jn += S.cols[6 * i + r] * S.wsol[6 + r];
           }
           d = (je + d) - jn;
         }
-        S.qs[i] = clipf(qi + clipf(d, -0.5f, 0.5f), M.lower[i], M.upper[i]);
+        S.qs[i] = clipd(qi + clipd(d, -0.5, 0.5), M.lower[i], M.upper[i]);
       } else {
-        S.qs[i] = clipf(qi + 0.0f, M.lower[i], M.upper[i]);
+        S.qs[i] = clipd(qi + 0.0, M.lower[i], M.upper[i]);
       }
     }
     T.sync();
@@ -1501,38 +1582,43 @@ FS_DEV void ik_dls(const Model& M, EnvSh& S, const Team& T) {
 FS_DEV void control(const Model& M, EnvSh& S, const Team& T) {
   const int na = M.n_arm, A = M.action_dim, at = M.action_type;
   const bool joints = at == FS_REL_JOINTS || at == FS_ABS_JOINTS;
-  fk(M, S, T, S.q, nullptr, M.ee_parent + 1);
+  for (int i = T.lane; i < M.n_dof; i += FS_G) S.qs[i] = S.q[i];
+  T.sync();
+  fk_links(M, S, T, M.ee_parent + 1);
   if (T.lane == 0) {
-    float* a = S.act;
-    for (int i = 0; i < A; ++i) a[i] = clipf(a[i], -M.action_high[i], M.action_high[i]);
-    S.grip[0] = a[A - 1];
-    float ee[3], eq[4];
-    site_pose(M, S, ee, eq);
+    double a[FS_MAX_ACT];
+    for (int i = 0; i < A; ++i)
+      a[i] = clipd(S.act[i], -(double)M.action_high[i], M.action_high[i]);
+    S.grip[0] = (float)a[A - 1];
+    double ee[3], eq[4];
+    site_pose_d(M, S, ee, eq);
     if (at == FS_REL_JOINTS) {
-      for (int j = 0; j < na; ++j) S.ctrl[j] = S.q[j] + a[j];
+      for (int j = 0; j < na; ++j) S.qs[j] = S.qs[j] + a[j];
     } else if (at == FS_ABS_JOINTS) {
-      for (int j = 0; j < na; ++j) S.ctrl[j] = a[j];
+      for (int j = 0; j < na; ++j) S.qs[j] = a[j];
     } else {
-      float quat[4] = {0.0f, 0.0f, 0.0f, 1.0f};
+      double quat[4] = {0.0, 0.0, 0.0, 1.0};
       bool rel = at == FS_REL_QUAT || at == FS_REL_RPY || at == FS_REL_CART;
       for (int c = 0; c < 3; ++c) S.tp[c] = rel ? a[c] + ee[c] : a[c];
       if (at == FS_ABS_QUAT) {
-        if (M.use_orientation) { copy4(a + 3, quat); qnormalize(quat); }
+        if (M.use_orientation) {
+          for (int c = 0; c < 4; ++c) quat[c] = a[3 + c];
+          qnormalize(quat);
+        }
       } else if (at == FS_REL_QUAT) {
         // the reference adds quaternions componentwise
         for (int c = 0; c < 4; ++c) quat[c] = a[3 + c] + eq[c];
         qnormalize(quat);
       } else if (at == FS_ABS_RPY) {
-        float rpy[3] = {a[3], a[4], a[5]};
+        double rpy[3] = {a[3], a[4], a[5]};
         quat_from_euler(rpy, quat);
       } else if (at == FS_REL_RPY || M.use_orientation) {
-        float rpy[3];
+        double rpy[3];
         quat_to_euler(eq, rpy);
         for (int c = 0; c < 3; ++c) rpy[c] = rpy[c] + a[3 + c];
         quat_from_euler(rpy, quat);
       }
-      copy4(quat, S.tq);
-      for (int i = 0; i < M.n_dof; ++i) S.qs[i] = S.q[i];
+      for (int c = 0; c < 4; ++c) S.tq[c] = quat[c];
     }
   }
   T.sync();
@@ -1541,9 +1627,9 @@ FS_DEV void control(const Model& M, EnvSh& S, const Team& T) {
   FS_MARK(FS_P_IK);
   if (T.lane == 0) {
     for (int j = 0; j < na; ++j) {
-      float t = clipf(joints ? S.ctrl[j] : S.qs[j], M.ctrl_lower[j], M.ctrl_upper[j]);
-      float inc = M.rate_limit[j];
-      S.ctrl[j] = clipf(t, S.q[j] - inc, S.q[j] + inc);
+      double t = clipd(S.qs[j], M.ctrl_lower[j], M.ctrl_upper[j]);
+      double q = S.q[j], inc = M.rate_limit[j];
+      S.ctrl[j] = (float)clipd(t, q - inc, q + inc);
     }
   }
   T.sync();
@@ -1732,21 +1818,16 @@ extern "C" int fs_sim(const void* M, const void* X, const void* ctrl,
   return (int)cudaGetLastError();
 }
 
-// fs_step with the chosen servo targets and gripper command written to C
-// (n_arm + 1, B)
-extern "C" int fs_step_ctrl(const void* M, const void* X, const void* act,
-                            void* Y, void* C, int B, void* stream) {
+// C (n_arm + 1, B), when not null, receives the servo targets and gripper
+// command that control chose
+extern "C" int fs_step(const void* M, const void* X, const void* act, void* Y,
+                       void* C, int B, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   int code = fs_allow_smem(fs_step_kernel);
   if (code != 0) return code;
   fs_step_kernel<<<fs_blocks(B), FS_THREADS, FS_SMEM_BYTES, (cudaStream_t)stream>>>(
       (const Model*)M, (const float*)X, (const float*)act, (float*)Y, (float*)C, B);
   return (int)cudaGetLastError();
-}
-
-extern "C" int fs_step(const void* M, const void* X, const void* act, void* Y,
-                       int B, void* stream) {
-  return fs_step_ctrl(M, X, act, Y, nullptr, B, stream);
 }
 
 extern "C" int fs_rollout(const void* M, const void* X, const void* act, void* Y,

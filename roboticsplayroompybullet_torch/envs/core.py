@@ -45,12 +45,17 @@ MAX_PLACE_ATTEMPTS = 20     # the re-place loop's cap (JAX core.py:249)
 MAX_RESET_REDRAWS = 100     # the reset-until-unsolved loop's cap (:323)
 
 
-class EnvModel(NamedTuple):
-    """Static bundle of host numpy constants the physics closes over."""
+class _Model(NamedTuple):
     cfg: EnvConfig
     tree: KineTree
     arm: ArmConfig
     scene: Scene
+
+
+class EnvModel(_Model):
+    """Static bundle of host numpy constants the physics closes over. Its
+    kernel dispatchers (`_fn`) live in the instance's own dict, so they go
+    with it."""
 
 
 def build_model(cfg: EnvConfig) -> EnvModel:
@@ -65,16 +70,10 @@ def build_model(cfg: EnvConfig) -> EnvModel:
     return EnvModel(cfg, tree, arm, scene)
 
 
-_FNS: dict = {}
-
-
 def _fn(m: EnvModel, key, make):
     """make() once per model and key: the kernel dispatchers (the model's
-    constants go to the card once, not per call)."""
-    entry = _FNS.get(id(m))
-    if entry is None or entry[0] is not m:
-        entry = _FNS[id(m)] = (m, {})
-    fns = entry[1]
+    constants go to the card once, not per call), kept on the model."""
+    fns = vars(m).setdefault("_fns", {})
     if key not in fns:
         fns[key] = make()
     return fns[key]
@@ -121,13 +120,14 @@ def _rest(m: EnvModel, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def control(m: EnvModel, state: EnvState, action: torch.Tensor):
-    """(B, A) actions → (servo targets (B, n_arm), grip (B,), target_poses)
-    by the plain lane control (make_lane_control: the action decode, DLS
-    IK at the arm's iterations, goto_joint_poses' clamps). The env step on
-    the card runs the same control inside the `step` kernel."""
+    """(B, A) actions → (servo targets (B, n_arm), grip (B,)) by the plain
+    lane control (make_lane_control: the action decode, DLS IK at the arm's
+    iterations, goto_joint_poses' clamps, in float64). The targets are also
+    the step's info["target_poses"]. The env step on the card runs the same
+    control inside the `step` kernel."""
     ctrl = fs.make_lane_control(m.cfg, m.tree, m.arm)
     targets, grip = ctrl(state.q.T, action.T.to(torch.float32))
-    return targets.T, grip, targets.T
+    return targets.T, grip
 
 
 # ---------------------------------------------------------------------------

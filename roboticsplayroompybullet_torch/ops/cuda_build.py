@@ -78,7 +78,8 @@ def _fields(src: str, macro: str):
     consts = _defines(src)
     fields = []
     for kind, typ, name, count in re.findall(
-            r"\b([SA])\((int|float),\s*(\w+)(?:,\s*([^)]+))?\)", body):
+            r"\b([SA])\((int|float|double),\s*(\w+)(?:,\s*([^)]+))?\)",
+            body):
         n = 1
         if kind == "A":
             expr = re.sub(r"\bFS_\w+\b", lambda t: str(consts[t.group(0)]),
@@ -103,17 +104,21 @@ def row_capacity(src: str = None) -> int:
 
 def launch_smem_bytes(src: str = None) -> int:
     """Dynamic shared memory of one block, as the launchers ask for it: the
-    Model rounded up to 16 bytes, then FS_ENVS EnvSh (all float arrays)."""
+    Model rounded up to 16 bytes, then FS_ENVS EnvSh."""
     src = src if src is not None else _source_text()
     model = ctypes.sizeof(_struct_type(model_fields(src)))
-    env = 4 * sum(n for _, _, n, _ in _fields(src, "FS_ENV_FIELDS"))
+    env = ctypes.sizeof(_struct_type(_fields(src, "FS_ENV_FIELDS")))
     return -(-model // 16) * 16 + _defines(src)["FS_ENVS"] * env
+
+
+_CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "double": ctypes.c_double}
 
 
 def _struct_type(fields):
     cfields = []
     for name, typ, n, kind in fields:
-        base = ctypes.c_int if typ == "int" else ctypes.c_float
+        base = _CTYPES[typ]
         cfields.append((name, base if kind == "S" else base * n))
     return type("Model", (ctypes.Structure,), {"_fields_": cfields})
 
@@ -176,13 +181,10 @@ def library(source: str = SOURCE):
             lib.fs_model_layout.argtypes = [ctypes.POINTER(I), I]
             lib.fs_model_layout.restype = I
             lib.fs_sim.argtypes = [P, P, P, P, P, I, P]
-            lib.fs_step.argtypes = [P, P, P, P, I, P]
+            lib.fs_step.argtypes = [P, P, P, P, P, I, P]
             lib.fs_rollout.argtypes = [P, P, P, P, P, I, I, P]
             for f in (lib.fs_sim, lib.fs_step, lib.fs_rollout):
                 f.restype = I
-            if hasattr(lib, "fs_step_ctrl"):  # older copies of the source
-                lib.fs_step_ctrl.argtypes = [P, P, P, P, P, I, P]
-                lib.fs_step_ctrl.restype = I
             lib.fs_error_string.argtypes = [I]
             lib.fs_error_string.restype = ctypes.c_char_p
             _check_layout(lib, source)
@@ -314,7 +316,6 @@ def model_values(cfg, tree, arm, scene, n_substeps: int, ik_iters: int,
     v["mu_pad"] = float(scene.block_fric)
     v["mu_art"] = 0.5 * float(scene.block_fric)
     v["mu_bb"] = float(scene.block_fric)
-    v["ik_damp2"] = 0.05 * 0.05
     v["dial_mul"] = math.pi
     v["dial_div"] = 2.2 * math.pi
 
@@ -447,11 +448,8 @@ class KernelModel:
                                   Y.data_ptr(), ags.data_ptr(), H, B, stream)
         if which == "step":
             X, act, Y, C = args
-            if C is not None:
-                return lib.fs_step_ctrl(m, X.data_ptr(), act.data_ptr(),
-                                        Y.data_ptr(), C.data_ptr(), B, stream)
             return lib.fs_step(m, X.data_ptr(), act.data_ptr(), Y.data_ptr(),
-                               B, stream)
+                               None if C is None else C.data_ptr(), B, stream)
         X, ctrl, grip, Y = args
         return lib.fs_sim(m, X.data_ptr(), ctrl.data_ptr(), grip.data_ptr(),
                           Y.data_ptr(), B, stream)

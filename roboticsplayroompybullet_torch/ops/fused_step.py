@@ -1280,7 +1280,15 @@ def _chol6_solve(A, bs):
 def lane_ik_dls(tree: KineTree, arm: ArmConfig, q0, target_pos, target_quat,
                 iters: int, damping: float = 0.05, null_gain: float = 0.05):
     """Mirror of kinematics.ik_dls on lane state (only the first n_arm dofs
-    move). q0: (n_dof, B); targets: (3/4, B). Returns q."""
+    move). q0: (n_dof, B); targets: (3/4, B). Returns q in q0's dtype.
+
+    The iteration runs in float64 whatever the inputs' dtype, as the
+    kernel's does: where a joint limit or the step clamp cuts it (the Panda
+    at the edge of its reach) it is ill-conditioned, and two float32 orders
+    of the same sums part there by up to 1e-2 rad."""
+    dtype = q0.dtype
+    q0, target_pos, target_quat = (
+        q0.double(), target_pos.double(), target_quat.double())
     n_active = arm.n_arm
     site = arm.ee_site
     rest = np.zeros(tree.n_dof, f32)
@@ -1344,7 +1352,7 @@ def lane_ik_dls(tree: KineTree, arm: ArmConfig, q0, target_pos, target_quat,
                 d = torch.zeros_like(q[0])
             dq_rows.append(d)
         q = torch.clamp(q + torch.stack(dq_rows), lower_c, upper_c)
-    return q
+    return q.to(dtype)
 
 
 def lane_quat_from_euler(rpy):
@@ -1378,12 +1386,16 @@ def default_ik_iters(arm: ArmConfig) -> int:
 def make_lane_control(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
                       ik_iters: Optional[int] = None):
     """action (A, B) + state q (n_dof, B) → (ctrl targets (n_arm, B),
-    grip (B,)). Mirrors envs/core.control."""
+    grip (B,)) in q's dtype. Mirrors envs/core.control, computed in
+    float64 as the kernel's control is (the decode feeds lane_ik_dls's
+    ill-conditioned iteration its target: see there)."""
     at = cfg.action_type
     n_arm = arm.n_arm
     iters = ik_iters if ik_iters is not None else default_ik_iters(arm)
 
     def control(q, action):
+        dtype = q.dtype
+        q, action = q.double(), action.double()
         tpl = q[0]
         high = _const(np.asarray(cfg.action_high, f32), tpl)
         action = torch.clamp(action, -high, high)
@@ -1428,7 +1440,7 @@ def make_lane_control(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
         targets = torch.clamp(targets, ll, ul)
         cur = q[:n_arm]
         targets = torch.clamp(targets, cur - inc, cur + inc)
-        return targets, grip
+        return targets.to(dtype), grip.to(dtype)
 
     return control
 

@@ -1,8 +1,8 @@
 """PyTorch port: the env layer (envs/obs.py, envs/core.py, envs/wrapper.py,
 gym_registry.py, parallel/rollout.py and solver/mpc.py's plan /
 mpc_rollout) against the JAX package's outputs, from committed fixtures
-(tools/gen_port_fixtures.py: golden_lane_*, proprio, mpc_plan_loop_*); no
-JAX program runs here.
+(tools/gen_port_fixtures.py: golden_lane_*, proprio, settle_*,
+mpc_plan_loop_*); no JAX program runs here.
 
 Tolerances: calc_obs atol 1e-5 per key (the lane FK against the JAX
 oracle's FK), gripper_proprioception exactly; reset(o=golden o0) object
@@ -125,9 +125,8 @@ def test_reset_with_state_injection_matches_jax(env_id, monkeypatch):
 @pytest.mark.parametrize("env_id", SMOKE)
 def test_playenv_replays_golden_start(env_id):
     """PlayEnv(device="cpu"): reset(o=o0), then the golden's first two
-    actions, within tests/test_golden.py's bounds of the golden and, for
-    the steps the JAX lane twin's replay holds, within the one-step bounds
-    of it."""
+    actions, within tests/test_golden.py's bounds of the golden and within
+    the one-step bounds of the JAX lane twin's replay."""
     lane = tp.load(f"golden_lane_{tp.key(env_id)}")
     with np.load(os.path.join(tp.ROOT, "tests", "golden",
                               env_id.replace("-", "_") + ".npz")) as z:
@@ -144,10 +143,8 @@ def test_playenv_replays_golden_start(env_id):
         assert np.abs(env.state.q.numpy()[0] - g["q"][t]).max() < 2e-2
         X = fs.pack_state(m.cfg, m.tree, env.state)[:, 0].numpy()
         for name, sl in tp.field_slices(m.cfg, m.tree):
-            if t < len(lane["X"]):        # the Panda replays hold 1 step
-                np.testing.assert_allclose(X[sl], lane["X"][t][sl], rtol=0,
-                                           atol=1e-4,
-                                           err_msg=f"{name} t={t}")
+            np.testing.assert_allclose(X[sl], lane["X"][t][sl], rtol=0,
+                                       atol=1e-4, err_msg=f"{name} t={t}")
         assert int(env.state.t[0]) == t + 1
         assert info["is_success"] == float(r >= 0)
         np.testing.assert_array_equal(info["target_poses"],
@@ -223,6 +220,31 @@ def test_re_place_loop_redraws_only_the_envs_out_of_bounds(monkeypatch):
     assert calls[:3] == [4, 3, 2] and calls[3:] == [1] * 17
     assert out.obj_pos[:3, 0, 0].le(hi[0]).all()
     assert out.obj_pos[3, 0, 0] > hi[0]         # the cap keeps the last draw
+
+
+@pytest.mark.parametrize("env_id", ("UR5PlayAbsRPY1Obj-v0", "pandaPlay-v0"))
+def test_placement_replays_jax_draws(env_id, monkeypatch):
+    """_place_and_settle on the settle fixture's U(0, 1) draws (the settle
+    itself replaced by the identity: the card holds the settle against
+    JAX's, chip_smoke.py::settle_vs_jax) places every block where JAX's
+    _place_and_settle did: scaled to the object bounds, staggered 3 cm a
+    block, turned 90° about z, at rest."""
+    z = tp.load(f"settle_{tp.key(env_id)}")
+    m = core.build_model(CATALOG[env_id])
+    u = T(z["u"][:16])
+    monkeypatch.setattr(core, "_uniform", lambda gen, shape, dev:
+                        u.reshape(shape))
+    monkeypatch.setattr(core, "_settler", lambda m_: lambda X, c, g: X)
+    st = core._default_state(m, 16, "cpu")
+    st = st.replace(obj_vel=torch.ones_like(st.obj_vel))
+    out = core._place_and_settle(m, st, None)
+    np.testing.assert_allclose(out.obj_pos.numpy(), z["placed"][:16],
+                               rtol=0, atol=1e-7)
+    np.testing.assert_array_equal(
+        out.obj_quat.numpy(),
+        np.broadcast_to(np.float32([0.0, 0.0, 0.7071, 0.7071]),
+                        out.obj_quat.shape))
+    assert not out.obj_vel.any() and not out.obj_angvel.any()
 
 
 @pytest.mark.parametrize("env_id", IDS)
@@ -326,18 +348,16 @@ def test_mpc_rollout_matches_jax(algo, monkeypatch):
 
 def test_control_returns_the_lane_control():
     """core.control on an EnvState: the lane control's servo targets (at
-    the control bounds of JAX's, tests/test_fused.py:97-100) and grip, the
-    targets also as target_poses."""
+    the control bounds of JAX's, tests/test_fused.py:97-100) and grip."""
     env_id = "UR5PlayRelRPY1Obj-v0"
     z = tp.load(f"control_{tp.key(env_id)}")
     m = core.build_model(CATALOG[env_id])
     st = tp.zero_state(m.cfg, m.tree, z["q"].shape[1]).replace(
         q=T(z["q"].T.copy()))
     with torch.no_grad():
-        targets, grip, poses = core.control(m, st, T(z["actions"].T.copy()))
+        targets, grip = core.control(m, st, T(z["actions"].T.copy()))
     _assert_control_bounds(targets.numpy().T, z["targets"], "targets")
     np.testing.assert_allclose(grip.numpy(), z["grip"], rtol=0, atol=1e-6)
-    assert torch.equal(poses, targets)
 
 
 def test_batched_rollout_matches_jax():

@@ -25,10 +25,9 @@ states (tests/golden/*.npz). The physics fixtures are B=128; the MPC ones
 
     python tools/gen_port_fixtures.py --only $(python tools/gen_port_fixtures.py --list | grep golden_lane)
 
-writes the 19 lane replays of the goldens (LANE_STEPS: 2-3 min each on a
-CPU for a UR5 id, about as long for the first step of a Panda id; XLA's
-compile and the Panda step use every core, so pin parallel processes to
-their own cores with taskset).
+writes the 19 lane replays of the goldens, 25 steps each (a few minutes for
+a UR5 id on a CPU, ~8 min for a Panda id on two cores; XLA's compile uses
+every core, so pin parallel processes to their own cores with taskset).
 """
 from __future__ import annotations
 
@@ -568,26 +567,43 @@ def _obs_out(prefix: str, o: dict) -> dict:
     return {f"{prefix}_{k}": np.asarray(o[k]) for k in OBS_KEYS}
 
 
-# control steps of each golden the lane replay records: all 25 for the
-# UR5 ids; the first only for the Panda ids, whose JAX lane step takes
-# ~280 core-seconds a call at B=128 on a CPU (~70 s on 8 cores; the UR5's
-# takes about a second), so 25 of them are ~30 min an id; all 25 for the
-# Panda ids whose replay through the port leaves the golden's bounds
-LANE_STEPS = {"UR5": 25, "Panda": 1}
-FULL_LANE_IDS = ("pandaReach-v0", "pandaPlayRelRPY1Obj-v0")
+# envs of the lane tile the golden replays step: make_reference_step's
+# body on an (NF, 1, LANE_TILE) tile instead of its 128-wide one, per env
+# the same JAX operations at a sixteenth of the cost (~33 core-seconds a
+# Panda step on a CPU, where the 128-wide tile takes ~500). XLA vectorises
+# the two widths differently, so they agree to float32 rounding, not bit
+# for bit: of the 128-wide replays this file wrote before, pandaReach's 25
+# steps are identical, pandaPlayRel1Obj's first within 8.3e-7, and
+# pandaPlayRelRPY1Obj's within 1.6e-4 until its ill-conditioned IK step
+# 14, where the two part as any two roundings do
+LANE_TILE = 8
+
+
+def lane_step(m):
+    """JAX's make_reference_step body (the lane control, then the lane sim,
+    solve 8, the arm's IK iterations) on X (NF, 1, LANE_TILE) and actions
+    (A, 1, LANE_TILE)."""
+    control = fs.make_lane_control(m.cfg, m.tree, m.arm)
+    sim = fs.make_lane_sim(m.cfg, m.tree, m.arm, m.scene, None,
+                           solve_iters=8)
+
+    def step(X3, A3):
+        st = fs._lanes_from_block(m.cfg, m.tree, X3)
+        ctrl, grip = control(st["q"], A3)
+        return fs._block_from_lanes(m.cfg, m.tree, sim(st, ctrl, grip))
+
+    return step
 
 
 def make_golden_lane(env_id: str):
-    """One golden's replay through the JAX package's lane twin
-    (make_reference_step, on B=128 tiled copies of the one env, the first
-    LANE_STEPS[arm] of its 25 steps, or all of them for FULL_LANE_IDS)
-    from JAX's core.reset(o=g["o0"]),
-    with calc_obs and the continuity
-    buffers after every step as core.step threads them. Records the reset
-    state, its obs and goal draws; per step the packed X, ee, ag and q; the
-    full obs of the first step's state and of that state with negated
-    continuity buffers (so the play envs' _flip_quats fires); and the
-    replay's own distance to the golden."""
+    """One golden's replay through the JAX package's lane twin (lane_step on
+    LANE_TILE tiled copies of the one env, all 25 steps) from JAX's
+    core.reset(o=g["o0"]), with calc_obs and the continuity buffers after
+    every step as core.step threads them. Records the reset state, its obs
+    and goal draws; per step the packed X, ee, ag and q; the full obs of the
+    first step's state and of that state with negated continuity buffers
+    (so the play envs' _flip_quats fires); and the replay's own distance to
+    the golden."""
     cfg = CATALOG[env_id]
     m = core.build_model(cfg)
     g = golden(env_id)
@@ -595,28 +611,28 @@ def make_golden_lane(env_id: str):
     st0, obs0 = jax.jit(lambda k, o: core.reset(m, k, o))(
         key, jnp.asarray(g["o0"]))
     calc = _obs_fn(m)
-    tile = lambda x: jnp.broadcast_to(x, (B,) + x.shape)  # noqa: E731
+    L = LANE_TILE
+    tile = lambda x: jnp.broadcast_to(x, (L,) + x.shape)  # noqa: E731
     first = jax.jit(lambda X, st: jax.tree.map(
         lambda v: v[0], fs.unpack_state(cfg, m.tree, X,
                                         jax.tree.map(tile, st))))
     X0 = np.asarray(fs.pack_state(cfg, m.tree, jax.tree.map(tile, st0)))
+    NF = X0.shape[0]
     # compiled once, ahead of time: a jitted call may trace and compile
     # again on a later step's inputs, at a minute or two each
-    A_ = jax.ShapeDtypeStruct((cfg.action_dim, B), jnp.float32)
-    step_B = jax.jit(fs.make_reference_step(
-        m.cfg, m.tree, m.arm, m.scene)).lower(
-        jax.ShapeDtypeStruct(X0.shape, jnp.float32), A_).compile()
+    step = jax.jit(lane_step(m)).lower(
+        jax.ShapeDtypeStruct((NF, 1, L), jnp.float32),
+        jax.ShapeDtypeStruct((cfg.action_dim, 1, L), jnp.float32)).compile()
     X = jnp.asarray(X0, jnp.float32)
     X0 = X0[:, 0]
     st = st0
     Xs, ee, ag, q = [], [], [], []
     out = {}
-    n = len(g["actions"]) if env_id in FULL_LANE_IDS else \
-        LANE_STEPS[cfg.arm]
-    for t, a in enumerate(g["actions"][:n]):
+    for t, a in enumerate(g["actions"]):
         t0 = time.time()
-        X = step_B(X, jnp.asarray(np.broadcast_to(
-            np.asarray(a, np.float32)[:, None], (a.shape[0], B))))
+        X = step(X.reshape(NF, 1, L), jnp.asarray(np.broadcast_to(
+            np.asarray(a, np.float32)[:, None, None],
+            (a.shape[0], 1, L)))).reshape(NF, L)
         Xn = np.asarray(X)
         assert (Xn == Xn[:, :1]).all(), (env_id, t)
         st = first(X, st)
@@ -636,10 +652,9 @@ def make_golden_lane(env_id: str):
         q.append(np.asarray(st.q))
         print(f"{env_id} step {t + 1}: {time.time() - t0:.1f} s", flush=True)
     Xs, ee, ag, q = map(np.stack, (Xs, ee, ag, q))
-    T = len(Xs)
-    err = {"ee": np.linalg.norm(ee - g["ee"][:T], axis=-1),
-           "ag": np.abs(ag - g["ag"][:T]).max(-1),
-           "q": np.abs(q - g["q"][:T]).max(-1)}
+    err = {"ee": np.linalg.norm(ee - g["ee"], axis=-1),
+           "ag": np.abs(ag - g["ag"]).max(-1),
+           "q": np.abs(q - g["q"]).max(-1)}
     for k, e in err.items():
         t = int(np.argmax(e))
         print(f"{env_id} lane vs golden {k}: max {e.max():.3e} at step "
@@ -649,6 +664,46 @@ def make_golden_lane(env_id: str):
           **{f"err_{k}": v for k, v in err.items()},
           **{f"reset_{k}": v for k, v in _state_dict(st0).items()},
           **_obs_out("reset", obs0), **reset_goal_draws(cfg, key), **out)
+
+
+# envs of each settle fixture, and its envs: the flagship (one block) and
+# pandaPlay (two blocks, block-block rows)
+SETTLE_B = 512
+SETTLE_ENVS = (FLAGSHIP, "pandaPlay-v0")
+
+
+def make_settle(env_id: str):
+    """One random placement and the 100-substep settle of reset's
+    _place_and_settle (JAX core, the oracle physics), on SETTLE_B default
+    states at rest, each from its own jax.random key. Records the U(0, 1)
+    draws jax.random.uniform made for each object (so the port's _uniform
+    can replay them), the placed positions and the settled object state."""
+    cfg = CATALOG[env_id]
+    m = core.build_model(cfg)
+    keys = jax.random.split(jax.random.PRNGKey(30), SETTLE_B)
+
+    def one(k):
+        st = core._default_state(m, k)
+        st = st.replace(art_q=jnp.zeros(4, jnp.float32),
+                        art_qd=jnp.zeros(4, jnp.float32))
+        ks = jax.random.split(k, cfg.num_objects)
+        u = jnp.stack([jax.random.uniform(ki, (3,), jnp.float32)
+                       for ki in ks])
+        return u, core._place_and_settle(m, st, k)
+
+    t0 = time.time()
+    u, st = jax.jit(jax.vmap(one))(keys)
+    jax.block_until_ready(st)
+    print(f"{env_id} settle B={SETTLE_B}: {time.time() - t0:.1f} s",
+          flush=True)
+    lo = np.asarray(cfg.obj_lower_bound, np.float32)
+    hi = np.asarray(cfg.obj_upper_bound, np.float32)
+    placed = np.maximum(lo, np.asarray(u) * (hi - lo) + lo)
+    placed[..., 2] += 0.03 * (np.arange(cfg.num_objects) + 1)
+    _save(f"settle_{_key(env_id)}", u=u, placed=placed,
+          **{f"out_{k}": np.asarray(getattr(st, k))
+             for k in ("q", "qd", "obj_pos", "obj_quat", "obj_vel",
+                       "obj_angvel")})
 
 
 def make_proprio():
@@ -746,6 +801,8 @@ def jobs() -> dict:
            "proprio": make_proprio}
     for e in CATALOG:
         out[f"golden_lane_{_key(e)}"] = (lambda e=e: make_golden_lane(e))
+    for e in SETTLE_ENVS:
+        out[f"settle_{_key(e)}"] = (lambda e=e: make_settle(e))
     for e in SIM3_ENVS:
         out[f"sim3_{_key(e)}"] = (lambda e=e: make_sim3(e))
     for e in CONTROL_ENVS:
