@@ -35,14 +35,21 @@ re-place case at B=1024; `[env step]` steps BatchedEnv at B=4096 (one
 step held to the plain twin) and times it beside PlayEnv.step at B=1;
 `[mpc plan loop]` runs mpc_rollout on UR5Reach (the planner scoring at the
 env step's fidelity) and holds its kernel launches at their own shapes.
+Then the task-competence eval (solver/eval.py): `[eval]` runs run_eval
+for the 12 families of tools/eval_mpc_torch.py at full width (4 envs x
+1024 candidates, H=10) on one batch of 20 steps, holds the first preview
+launch of each model new to the MPC path (UR5Reach, pandaPlayAbsRPY1Obj,
+pandaPick at B=4096) step by step and every model's executed step and
+pick's acquisition step per field, and times each model's eval control
+step (`[eval step]`).
 Every phase prints its numbers and the env phases their time; any failure
-raises and the script exits non-zero without a result line. About 16
-minutes on one H100, most of it the plain twin's eager steps (the H=40
-check takes 40, the H=10 previews 20, the settle check 100 substeps).
+raises and the script exits non-zero without a result line. About 12-15
+minutes on one H100, most of it the plain twin's steps (the H=40 check
+takes 40, the H=10 previews 50, the settle check 100 substeps).
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
-`launches` adds the counts of the main path's, the MPC path's and the env
-paths' runs, `launches_by_path` splits them), then
+`launches` adds the counts of the main path's, the MPC path's, the env
+paths' and the eval's runs, `launches_by_path` splits them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
 """
@@ -961,7 +968,13 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
     outside the one-step bounds is stepped again by the plain twin in
     float64, and counts against the kernel only where the kernel is
     farther from that step than the float32 plain step is (env_error): at
-    most MAX_FLIPS such envs a part and step. A population is a few start
+    most MAX_FLIPS such envs a part and step. An env whose position moved
+    ROLLOUT_MAX or more from the plain step (a branch of the physics, such
+    as a block pinched between the pads) must pass `jump_witness`: the
+    kernel's outcome is reached by the float64 plain step from inputs
+    within a few float32 roundings about as often as the float32 plain
+    step's own outcome is, and outcomes planted a position jump away are
+    not. A population is a few start
     states times many candidates, so an env near a branch (contact,
     clamp) brings its candidates with it. The plain steps of all parts run
     as one call a step."""
@@ -974,7 +987,7 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
     Bs = [X.shape[1] for _, X, _, _ in parts]
     ag_of = [fs.make_lane_ag(cfg, tree, m.arm, ee) for *_, ee in parts]
     worst = [dict(flips=0, against=0, ags=0.0, fields={}) for _ in parts]
-    bad, outside = [], []
+    bad, outside, jumps = [], [], []
     n_plain = H if plain_steps is None else min(H, plain_steps)
     with torch.no_grad():
         # a captured graph pays for itself from ~4 plain steps on
@@ -1006,8 +1019,18 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
                 for k, (mx, p99) in diffs.items():
                     o = w["fields"].get(k, (0.0, 0.0))
                     w["fields"][k] = (max(o[0], mx), max(o[1], p99))
-                if over or pmax >= ROLLOUT_MAX:
+                if over:
                     bad.append((tag, h + 1, over, pmax))
+                if pmax >= ROLLOUT_MAX:
+                    jump = torch.nonzero(((Xk[j] - Y[j]).abs() * pos_rows[
+                        :, None]).amax(0) >= ROLLOUT_MAX).flatten()
+                    o = jump_witness(step_p, Xin[j][:, jump], a[h][:, jump],
+                                     Xk[j][:, jump], Y[j][:, jump], pos_rows)
+                    jumps.append({"part": tag, "step": h + 1,
+                                  "envs": jump.tolist(), "max": pmax, **o})
+                    if not all(o["ok"]):
+                        bad.append((tag, h + 1, "position jump not "
+                                    "witnessed", jump.tolist(), o))
                 flagged.append(torch.nonzero(
                     env_error(Xk[j], Y[j], pos_rows) > 1).flatten())
             if sum(len(f) for f in flagged):
@@ -1034,6 +1057,17 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
                     if n > MAX_FLIPS:
                         bad.append((parts[j][0], h + 1, n))
         torch.cuda.synchronize()
+    for o in jumps:
+        say(f"[{o['part']} teacher-forced] step {o['step']}: envs whose "
+            f"position moved >= {ROLLOUT_MAX:g} from the plain step (max "
+            f"{o['max']:.3e}); of {JUMP_COPIES} float64 plain steps from "
+            "inputs within rounding, how many reach (env: the kernel's "
+            "outcome, the float32 plain step's, the kernel's + ROLLOUT_MAX, "
+            "their midpoint; needed for the kernel's): " + ", ".join(
+                f"{e}: {k} {p} {f1} {f2}; {n} {'ok' if ok else 'FAIL'}"
+                for e, k, p, f1, f2, n, ok in zip(
+                    o["envs"], o["kernel"], o["plain"], o["planted_over"],
+                    o["planted_mid"], o["needed"], o["ok"])))
     for o in outside:
         say(f"[{o['part']} teacher-forced] step {o['step']}: envs outside "
             "the one-step bounds (env: kernel vs plain, kernel vs float64, "
@@ -1059,6 +1093,7 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
             "fields": {k: {"max": v[0], "p99": v[1]} for k, v in f.items()},
             "flips_max": w["flips"], "against_kernel_max": w["against"],
             "outside": [o for o in outside if o["part"] == tag],
+            "jumps": [o for o in jumps if o["part"] == tag],
             "rollout_vs_steps": {"state_max": w["state"],
                                  "ags_max": w["ags"]}})
         if w["state"] > 1e-5 or w["ags"] > 1e-5:
@@ -1068,6 +1103,47 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
                      f" max) or (tag, step, envs against the kernel): {bad}")
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+JUMP_COPIES, JUMP_NOISE, JUMP_FLOOR = 256, 3e-7, 16
+
+
+def jump_witness(step_p, x, a, xk, y, pos_rows):
+    """Whether the kernel's step xk is a branch of the physics, for the n
+    envs (columns) of x and a whose kernel step jumped from the float32
+    plain step y. The plain step runs in float64 from JUMP_COPIES copies of
+    each env's input, each row scaled by 1 + JUMP_NOISE * N(0, 1) (a few
+    float32 roundings), and counts the copies that land within the
+    one-step bounds of: the kernel's outcome; the float32 plain step's
+    (the reference's own rounding, the calibration); and two planted
+    faults of the size a jump is flagged at, the kernel's outcome moved
+    ROLLOUT_MAX further along the jump and the midpoint of the two
+    outcomes. The kernel's outcome passes if its count reaches the plain
+    step's, capped at JUMP_FLOOR (1/16 of the copies; at least 1): a wrong
+    outcome reached 1 time in 256 fails unless the reference's own
+    outcome is as rare. Each planted fault must count under the kernel's
+    need, or the witness cannot tell a fault at this branch and the jump
+    fails. Returns the counts a list each, and ok."""
+    n, k = x.shape[1], JUMP_COPIES
+    g = torch.Generator(device=x.device).manual_seed(34)
+    noise = 1 + JUMP_NOISE * torch.randn(
+        (x.shape[0], n * k), generator=g, device=x.device,
+        dtype=torch.float64)
+    y64 = step_p(x.double().repeat_interleave(k, 1) * noise,
+                 a.double().repeat_interleave(k, 1))
+    xk, y = xk.double(), y.double()
+    d = (xk - y) * pos_rows[:, None]
+    over = xk + ROLLOUT_MAX * d / d.abs().amax(0, keepdim=True)
+    counts = {}
+    for name, t in (("kernel", xk), ("plain", y), ("planted_over", over),
+                    ("planted_mid", (xk + y) / 2)):
+        err = env_error(y64, t.repeat_interleave(k, 1), pos_rows)
+        counts[name] = (err.reshape(n, k) <= 1).sum(1)
+    need = counts["plain"].clamp(1, JUMP_FLOOR)
+    ok = ((counts["kernel"] >= need) & (counts["planted_over"] < need)
+          & (counts["planted_mid"] < need))
+    return {**{c: v.tolist() for c, v in counts.items()},
+            "needed": need.tolist(), "ok": ok.tolist()}
 
 
 def mpc_shapes_phase(calls, plain_steps=None):
@@ -1880,6 +1956,144 @@ def plan_loop_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the task-competence eval (solver/eval.py, tools/eval_mpc_torch.py)
+# ---------------------------------------------------------------------------
+
+PANDA_PLAY = "pandaPlayAbsRPY1Obj-v0"
+PLAY_FAMILIES = ("block", "drawer", "door", "button", "dial")
+EVAL_STEPS = 20      # control steps a family (block 1.5x, pick's carry)
+EVAL_TIMED = 5       # eval control steps timed a model, in one chain
+
+
+def eval_phase(dev):
+    """run_eval for the 12 families of tools/eval_mpc_torch.py at the
+    sweep's width (4 envs x 1024 candidates, H=10, 2 MPPI iterations,
+    sigma 0.3) and depth cut to one batch of 4 episodes and EVAL_STEPS
+    control steps (block 1.5x; pick keeps its 70 acquire steps and
+    carries for EVAL_STEPS), with the launch counts read around it. The
+    rates are printed, not held: 4 episodes at a cut depth say little (the
+    sweep's EVAL_TORCH.json holds them). Each stats record must be whole
+    and every kernel must have launched. Then the path's own launches are
+    held to the plain twin (mpc_shapes_phase): the first preview launch of
+    each model new to the MPC path (UR5Reach, pandaPlayAbsRPY1Obj and
+    pandaPick at B=4096, H=10, ik 8 / solve 8) step by step, teacher-forced
+    with the float64 witness; the first executed B=4 step of each of the
+    four models and pick's first acquisition step, per field. Last, ms per
+    eval control step of each model (a chain of EVAL_TIMED steps with its
+    family cost) beside its preview kernel at B=4096 and the executed
+    step."""
+    import _torch_port as tp
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.parallel import rollout as R
+    from roboticsplayroompybullet_torch.solver import eval as E
+    from roboticsplayroompybullet_torch.solver import mpc
+    REACH_ID, PICK_ID = E.REACH_ID, E.PICK_ID
+    cfg = mpc.MPCConfig(**PLAN_CFG)._replace(sigma_init=EVAL_SIGMA)
+    kw = dict(mpc=cfg, n_episodes=EVAL_ENVS, n_envs=EVAL_ENVS,
+              n_steps=EVAL_STEPS, seed=0, device=dev)
+
+    def drive():
+        res = E.run_eval(E.GOAL_FAMILIES + (E.PICK_FAMILY,), env_id=FLAGSHIP,
+                         **kw)
+        panda = E.run_eval(PLAY_FAMILIES, env_id=PANDA_PLAY, **kw)
+        res.update({f"panda_{k}": v for k, v in panda.items()})
+        return res
+
+    t0 = time.perf_counter()
+    with first_calls() as log:
+        res, launches = counted(drive)
+    wall = time.perf_counter() - t0
+    say(f"[eval] launches {launches}")
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"eval: the {k} kernel never launched")
+    for fam, r in res.items():
+        say(f"[eval] {fam}: {r['n_success']}/{r['n_episodes']} solved in "
+            f"{r['n_steps']} steps (not held), {r['wall_s']} s, resets "
+            f"{r['reset_s']} s; {card()}")
+        if (r["n_episodes"] != EVAL_ENVS or not 0 <= r["n_success"] <= 4
+                or not np.isfinite(r["wall_s"])):
+            raise AssertionError(f"eval {fam}: {r}")
+    if len(res) != 12:
+        raise AssertionError(f"eval: {sorted(res)}")
+    say(f"[eval] 12 families in {wall:.1f} s (resets "
+        f"{sum(r['reset_s'] for r in res.values()):.1f} s)")
+
+    # hold the path's first launches: previews of the new models, the
+    # executed steps of every model and pick's first acquisition step
+    names = {CATALOG[i]: tp.key(i) for i in (FLAGSHIP, REACH_ID, PANDA_PLAY,
+                                             PICK_ID)}
+    held = {}
+    for c in log:
+        name = names.get(c["m"][0])
+        B = c["inputs"][0].shape[1]
+        if c["entry"] == "rollout" and name != tp.key(FLAGSHIP) \
+                and B == EVAL_ENVS * cfg.pop:
+            held.setdefault(f"eval {name}", []).append(c)
+        elif c["entry"] == "step" and B == EVAL_ENVS:
+            piece = f"eval {name}" + (" acquire" if c["kw"].get("with_ctrl")
+                                      else "")
+            held.setdefault(piece, []).append(c)
+    want = {f"eval {tp.key(i)}" for i in (REACH_ID, PANDA_PLAY, PICK_ID)}
+    want.add(f"eval {tp.key(PICK_ID)} acquire")
+    if not want <= set(held):
+        raise AssertionError(f"eval: launches to hold missing: {sorted(held)}")
+    mpc_shapes_phase(held)
+
+    timed = {}
+    for env_id, fam in ((FLAGSHIP, "drawer"), (REACH_ID, "reach"),
+                        (PANDA_PLAY, "drawer"), (PICK_ID, E.PICK_FAMILY)):
+        m = core.build_model(CATALOG[env_id])
+        skw, params = E._family_cost(m, fam, EVAL_ENVS, dev)
+        with_ee = skw.get("with_ee", False)
+        step = mpc.make_batched_fused_mpc_step(m, cfg, EVAL_ENVS, **skw)
+        g = torch.Generator(device=dev).manual_seed(33)
+        with torch.no_grad():
+            st0, _ = R.batched_reset(m, g, EVAL_ENVS, dev)
+            pl0 = mpc.init_batched_plan(m, cfg, EVAL_ENVS, st0)
+
+            def chain(n=1):
+                st, pl = st0, pl0
+                for _ in range(n):
+                    st, pl, _, _ = step(st, pl, g, params)
+                return st
+
+            ms, host = _chain_ms(chain, EVAL_TIMED)
+            pkw = dict(ik_iters=cfg.preview_ik_iters,
+                       solve_iters=cfg.preview_solve_iters)
+            roll = fs.make_cuda_rollout(*m, cfg.horizon, with_ee=with_ee,
+                                        **pkw)
+            XS = fs.pack_state(m.cfg, m.tree, st0)
+            XE = XS.repeat_interleave(cfg.pop, 1)
+            acts = mpc._sample(g, pl0, cfg, cfg.pop, torch.tensor(
+                m.cfg.action_high, device=dev)).reshape(
+                    EVAL_ENVS * cfg.pop, cfg.horizon, -1).permute(
+                        1, 2, 0).contiguous()
+            kE = time_ms(lambda: roll(XE, acts), 5)
+            stepk = fs.make_cuda_step(*m)
+            kx = time_ms(lambda: stepk(XS, pl0.mean[:, 0].T.contiguous()), 5)
+        bE = bound_ms(*work(m, EVAL_ENVS * cfg.pop, cfg.horizon,
+                            **pkw)["rollout"])
+        say(f"[eval step] {tp.key(env_id)} ({fam} cost) {EVAL_ENVS} envs x "
+            f"{cfg.pop} H={cfg.horizon} iters={cfg.iters}: {ms:.3f} ms per "
+            f"control step (chain of {EVAL_TIMED}; host enqueue {host:.3f} "
+            f"ms); preview rollout kernel B={EVAL_ENVS * cfg.pop}"
+            f"{' with_ee' if with_ee else ''} {kE:.3f} ms x {cfg.iters} "
+            f"(bound {bE[0]:.4f} ms, {bE[1]}), exec step kernel B="
+            f"{EVAL_ENVS} {kx:.3f} ms; rest "
+            f"{ms - cfg.iters * kE - kx:.3f} ms; {card()}")
+        timed[tp.key(env_id)] = {
+            "family_cost": fam, "eval_step_ms": ms, "host_ms": host,
+            "preview_kernel_ms": kE, "preview_bound_ms": bE[0],
+            "exec_step_kernel_ms": kx}
+    record("eval", {"launches": launches, "families": res, "wall_s": wall,
+                    "step_ms": timed})
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -1910,7 +2124,8 @@ def main():
     for name, phase in (("env step", env_step_phase),
                         ("env reset", env_reset_phase),
                         ("mpc plan loop", plan_loop_phase),
-                        ("env golden", env_golden_phase)):
+                        ("env golden", env_golden_phase),
+                        ("eval", eval_phase)):
         t0 = time.perf_counter()
         env_launches[name] = phase(dev)
         say(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")

@@ -27,7 +27,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    for name in ("ops.fused_step", "solver.mpc", "solver.cost", "envs.obs",
+    for name in ("ops.fused_step", "solver.mpc", "solver.cost",
+                 "solver.eval", "envs.obs",
                  "envs.core", "envs.wrapper", "envs.physics", "gym_registry",
                  "parallel.rollout", "utils.spaces", "utils.render"):
         assert f"roboticsplayroompybullet_torch.{name}" in mods, name

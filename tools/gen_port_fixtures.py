@@ -75,6 +75,7 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/parallel/fused.py",
      "roboticsplayroompybullet_tpu/solver/cost.py",
      "roboticsplayroompybullet_tpu/solver/mpc.py",
+     "roboticsplayroompybullet_tpu/solver/eval.py",
      "roboticsplayroompybullet_tpu/envs/obs.py",
      "roboticsplayroompybullet_tpu/ops/dynamics.py",
      "roboticsplayroompybullet_tpu/ops/spatial.py",
@@ -790,6 +791,290 @@ def make_mpc_plan_loop():
           **{k: np.int32(v) for k, v in MPC_PLAN_LOOP.items()})
 
 
+# ---------------------------------------------------------------------------
+# the eval (solver/eval.py): family data, costs, pick's phase A, one batch
+# ---------------------------------------------------------------------------
+
+PLAY_FAMILIES = ("block", "drawer", "door", "button", "dial")
+EVAL_PLAY_IDS = (FLAGSHIP, "pandaPlayAbsRPY1Obj-v0")
+PICK_ID = "pandaPick-v0"
+# eval_family on JAX's draws at a size the CPU runs in seconds; pop 64
+# because JAX's reference backend takes n_envs * pop in whole 128-lane
+# blocks (solver/mpc.py:374-375)
+EVAL_BATCH = dict(n_envs=2, pop=64, horizon=2, iters=1, n_substeps=1,
+                  n_steps=3, seed=0)
+EVAL_BATCH_FAMILY = "block"
+# eval_pick's phase A on pandaPick, 4 envs: the seed whose 70 steps visit
+# every phase 0-5 and a retry (found by make_eval_pick_acquire's search)
+PICK_ACQUIRE = dict(n_envs=4, acquire_budget=70, seed=3)
+ACQ_KEYS = ("phase", "close_ctr", "lift_ctr", "z_at_test", "retried",
+            "hold_pos", "bias", "ee", "blk", "a", "t")
+
+
+def _eval():
+    from roboticsplayroompybullet_tpu.solver import eval as E
+    return E
+
+
+def _reset_ags(cfg, rs, n):
+    """(n, 11) play achieved goals spread over the reset range: blocks on
+    the table in the object range, door on both sides, dial both sides of
+    0.5, the button part-way up its spring."""
+    lo = np.asarray(cfg.obj_lower_bound, np.float32)
+    hi = np.asarray(cfg.obj_upper_bound, np.float32)
+    ag = np.zeros((n, cfg.ag_dim), np.float32)
+    ag[:, 0:3] = rs.uniform(lo, hi, (n, 3))
+    qt = rs.standard_normal((n, 4))
+    ag[:, 3:7] = qt / np.linalg.norm(qt, axis=-1, keepdims=True)
+    ag[:, 7] = rs.uniform(-0.22, 0.05, n)
+    ag[:, 8] = rs.uniform(-0.15, 0.15, n)
+    ag[:, 9] = rs.uniform(0.0, 0.03, n)
+    ag[:, 10] = rs.uniform(0.0, 1.0, n)
+    if n > 2:
+        ag[0, 8], ag[1, 8], ag[2, 10] = 0.0, -0.0, 0.5       # the ties
+    return ag
+
+
+def make_eval_data():
+    """solver/eval.py's host-side pieces on numpy inputs: family_goals for
+    the five play families on both play models (and on a cfg whose object
+    range lies within 0.10 of every block, where the 100-draw loop keeps
+    its last draw), family_site_params, pick_params, the two family costs
+    vmapped over (env, candidate) as make_batched_fused_mpc_step calls
+    them, _success on both branches, and pick's rest orientation rpy0."""
+    E = _eval()
+    from roboticsplayroompybullet_tpu.ops import kinematics as K
+    from roboticsplayroompybullet_tpu.ops import spatial as sp
+    out = {}
+    rs = np.random.RandomState(40)
+    narrow = dataclasses.replace(CATALOG[FLAGSHIP],
+                                 obj_lower_bound=(0.0, 0.1, 0.05),
+                                 obj_upper_bound=(0.06, 0.16, 0.1))
+    for name, cfg in (("UR5PlayAbsRPY1Obj", CATALOG[FLAGSHIP]),
+                      ("pandaPlayAbsRPY1Obj",
+                       CATALOG["pandaPlayAbsRPY1Obj-v0"]),
+                      ("narrow", narrow)):
+        ags = _reset_ags(cfg, rs, 16)
+        if name == "narrow":
+            ags[:, 0:2] = (0.03, 0.13)
+        out[f"goals_{name}_ags"] = ags
+        for fam in PLAY_FAMILIES if name != "narrow" else ("block",):
+            rng = np.random.default_rng(41)
+            out[f"goals_{name}_{fam}"] = E.family_goals(cfg, ags, fam, rng)
+    for env_id in EVAL_PLAY_IDS:
+        m = core.build_model(CATALOG[env_id])
+        for fam in PLAY_FAMILIES:
+            for k, v in E.family_site_params(m, fam, reach_w=0.7).items():
+                out[f"site_{_key(env_id)}_{fam}_{k}"] = v
+
+    # the play cost: three cases of two envs with different families
+    # (block's with push_w != 0 once), E envs x pop candidates x H steps
+    E_, pop, H = 2, 8, 3
+    m = core.build_model(CATALOG[FLAGSHIP])
+    cfg, nag = m.cfg, m.cfg.ag_dim
+    for c, fams in enumerate((("drawer", "block"), ("door", "button"),
+                              ("dial", "block"))):
+        ps = [E.family_site_params(m, f) for f in fams]
+        if c == 0:
+            ps[1]["push_w"] = np.float32(0.05)
+        p = {k: np.stack([pi[k] for pi in ps]) for k in ps[0]}
+        g = _reset_ags(cfg, rs, E_)
+        ags = (g[:, None, None] + rs.uniform(-0.05, 0.05, (E_, pop, H, nag))
+               ).astype(np.float32)
+        ee = (ags[..., 0:3] + rs.uniform(-0.2, 0.2, (E_, pop, H, 3))
+              ).astype(np.float32)
+        ags = np.concatenate([ags, ee], -1)
+        acts = rs.uniform(-1, 1, (E_, pop, H, cfg.action_dim)
+                          ).astype(np.float32)
+        fn = E.make_play_cost(m)
+        cost = jax.vmap(lambda a, g1, u, p1: jax.vmap(
+            lambda a1, u1: fn(a1, g1, u1, p1))(a, u))(
+            jnp.asarray(ags), jnp.asarray(g), jnp.asarray(acts),
+            {k: jnp.asarray(v) for k, v in p.items()})
+        out.update({f"play{c}_ags": ags, f"play{c}_goal": g,
+                    f"play{c}_acts": acts, f"play{c}_cost": cost})
+        out.update({f"play{c}_p_{k}": v for k, v in p.items()})
+
+    # the pick cost: ee offsets from the grasp point straddling `near`
+    m = core.build_model(CATALOG[PICK_ID])
+    for c, ps in enumerate(((E.pick_params(), E.pick_params(
+            reach_w=0.3, grasp_w=1.0, near=0.25)),
+            (E.pick_params(open_w=0.5, near=0.06),
+             E.pick_params(grasp_z=0.02, goal_w=(1.0, 2.0, 0.5))))):
+        p = {k: np.stack([pi[k] for pi in ps]) for k in ps[0]}
+        g = rs.uniform(-0.15, 0.15, (E_, 3)).astype(np.float32)
+        block = rs.uniform(-0.15, 0.15, (E_, pop, H, 3)).astype(np.float32)
+        d = rs.standard_normal((E_, pop, H, 3))
+        d *= (rs.uniform(0.0, 2.0, (E_, pop, H, 1)) * p["near"][:, None,
+                                                                None, None]
+              / np.linalg.norm(d, axis=-1, keepdims=True))
+        ee = (block + np.array([0, 0, 1.0]) * p["grasp_z"][:, None, None,
+                                                           None] + d)
+        ags = np.concatenate([block, ee.astype(np.float32)], -1)
+        acts = rs.uniform(-1, 1, (E_, pop, H, m.cfg.action_dim)
+                          ).astype(np.float32)
+        fn = E.make_pick_cost(m)
+        cost = jax.vmap(lambda a, g1, u, p1: jax.vmap(
+            lambda a1, u1: fn(a1, g1, u1, p1))(a, u))(
+            jnp.asarray(ags), jnp.asarray(g), jnp.asarray(acts),
+            {k: jnp.asarray(v) for k, v in p.items()})
+        out.update({f"pick{c}_ags": ags, f"pick{c}_goal": g,
+                    f"pick{c}_acts": acts, f"pick{c}_cost": cost})
+        out.update({f"pick{c}_p_{k}": v for k, v in p.items()})
+
+    # _success: the play branch (any reward >= 0) and the reach branch
+    T, n = 6, 8
+    rews = np.where(rs.uniform(0, 1, (T, n)) < 0.1, 0.0, -1.0
+                    ).astype(np.float32)
+    rews[:, 0] = -1.0
+    out["succ_play_rs"] = rews
+    out["succ_play"] = E._success(CATALOG[FLAGSHIP], "block", rews, None,
+                                  None)
+    goals = rs.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    ags = (goals[None] + rs.standard_normal((T, n, 3))
+           * np.linspace(0.01, 0.1, n)[:, None]).astype(np.float32)
+    out.update(succ_reach_ags=ags, succ_reach_goals=goals,
+               succ_reach=E._success(CATALOG["UR5Reach-v0"], "reach",
+                                     None, ags, goals))
+    # rpy0 as eval_pick computes it (eval.py:397-401)
+    rest = np.zeros(m.tree.n_dof, np.float32)
+    rest[:m.arm.n_arm] = np.asarray(m.arm.rest_pose, np.float32)
+    _, q0 = K.fk_site(m.tree, jnp.asarray(rest), m.arm.ee_site)
+    out["rpy0_pandaPick"] = np.asarray(sp.quat_to_euler(q0))
+    _save("eval_data", **out)
+
+
+def _acquire_run(E, m, seed, n_envs, budget):
+    """JAX's eval_pick phase A on `m` (n_steps=0: no carry step, so the
+    planner is never built), recording each step: the wrapper of
+    core.step_physics_only (looked up at call time, eval.py:386) passes
+    each env's action through a host callback before the physics uses it
+    (an identity pure_callback, so the step waits for it), and the
+    callback reads the controller's variables from eval_pick's frame on
+    the main thread, which waits at the step's read (eval.py:500).
+    Returns the per-step records, each with the reset goals."""
+    import threading
+    step = core.step_physics_only
+    main = threading.main_thread().ident
+    rec = []
+
+    def snap(action):
+        action = np.array(action, copy=True)
+        f = sys._current_frames()[main]
+        while f.f_code is not E.eval_pick.__code__:
+            f = f.f_back
+        loc = f.f_locals
+        if rec and rec[-1]["t"] == loc["t"]:
+            rec[-1]["calls"].append(action)
+            return action
+        r = {k: np.array(loc[k], copy=True) for k in ACQ_KEYS}
+        r.update(calls=[action], goals=np.array(loc["goals"], copy=True))
+        rec.append(r)
+        return action
+
+    def recorded(m_, state, action):
+        action = jax.pure_callback(
+            snap, jax.ShapeDtypeStruct(action.shape, action.dtype), action,
+            vmap_method="sequential")
+        return step(m_, state, action)
+
+    core.step_physics_only = recorded
+    try:
+        mpc = E.MPCConfig(horizon=10, pop=128, iters=1, algorithm="mppi",
+                          sigma_init=0.3)
+        E.eval_pick(m, mpc, n_episodes=n_envs, n_envs=n_envs, n_steps=0,
+                    seed=seed, backend="reference", acquire_budget=budget)
+    finally:
+        core.step_physics_only = step
+    for r in rec:
+        # the callback ran once per env (vmap) with that env's action
+        assert np.array_equal(np.stack(r.pop("calls")), r["a"]), r["t"]
+    return rec
+
+
+def make_eval_pick_acquire():
+    """eval_pick's scripted grasp acquisition (phase A) on pandaPick,
+    PICK_ACQUIRE's 4 envs and 70-step budget: per step the ee and block
+    the controller read, its actions, and its variables after the step's
+    transition and bias update. `--only eval_pick_acquire` with
+    PLAYROOM_SEARCH=N first tries seeds 0..N-1 for one whose run visits
+    every phase and a retry."""
+    E = _eval()
+    m = core.build_model(CATALOG[PICK_ID])
+    n, budget = PICK_ACQUIRE["n_envs"], PICK_ACQUIRE["acquire_budget"]
+
+    def covers(rec):
+        seen = set(np.concatenate([r["phase"] for r in rec]).tolist())
+        return seen >= set(range(6)) and bool(rec[-1]["retried"].any())
+
+    seed = PICK_ACQUIRE["seed"]
+    for s in range(int(os.environ.get("PLAYROOM_SEARCH", "0"))):
+        t0 = time.time()
+        rec = _acquire_run(E, m, s, n, budget)
+        phases = np.stack([r["phase"] for r in rec])
+        print(f"seed {s}: {len(rec)} steps, phases seen "
+              f"{sorted(set(phases.ravel().tolist()))}, retried "
+              f"{rec[-1]['retried'].tolist()} ({time.time() - t0:.1f} s)",
+              flush=True)
+        if covers(rec):
+            seed = s
+            break
+    rec = _acquire_run(E, m, seed, n, budget)
+    assert covers(rec), "seed does not visit every phase and a retry"
+    out = {k: np.stack([r[k] for r in rec]) for k in ACQ_KEYS}
+    _save("eval_pick_acquire", goals=rec[0]["goals"], seed=np.int32(seed),
+          **{k: np.int32(v) for k, v in PICK_ACQUIRE.items() if k != "seed"},
+          **out)
+
+
+def make_eval_family_batch():
+    """One eval_family batch of JAX's (EVAL_BATCH on the flagship,
+    EVAL_BATCH_FAMILY, backend="reference"), through a step_fn wrapper that
+    records each control step's states, plans, rewards and ags. The first
+    step's input states are the reset states with the family goals; the
+    normals each step's iteration drew are rebuilt from its key as
+    make_batched_fused_mpc_step splits it (solver/mpc.py:411-426)."""
+    E = _eval()
+    sol, mpc = _mpc()
+    m = core.build_model(CATALOG[FLAGSHIP])
+    c = EVAL_BATCH
+    cfg = mpc.MPCConfig(horizon=c["horizon"], pop=c["pop"],
+                        iters=c["iters"], algorithm="mppi", sigma_init=0.3)
+    inner = jax.jit(mpc.make_batched_fused_mpc_step(
+        m, cfg, c["n_envs"], backend="reference", n_substeps=c["n_substeps"],
+        cost_fn=E.make_play_cost(m), with_ee=True))
+    calls = []
+
+    def step_fn(states, plans, key, params):
+        out = inner(states, plans, key, params)
+        calls.append((states, plans, key, out))
+        return out
+
+    res = E.eval_family(m, cfg, EVAL_BATCH_FAMILY, n_episodes=c["n_envs"],
+                        n_envs=c["n_envs"], n_steps=c["n_steps"],
+                        seed=c["seed"], backend="reference",
+                        n_substeps=c["n_substeps"], step_fn=step_fn)
+    A = m.cfg.action_dim
+    normals = np.stack([np.stack([np.stack([
+        np.asarray(jax.random.normal(kk, (c["pop"], c["horizon"], A),
+                                     jnp.float32))
+        for kk in jax.random.split(k, c["n_envs"])])
+        for k in jax.random.split(key, c["iters"])])
+        for _, _, key, _ in calls])           # (T, iters, E, pop, H, A)
+    st0, pl0 = calls[0][0], calls[0][1]
+    out = {f"in_{k}": v for k, v in _state_dict(st0).items()}
+    fin = _state_dict(calls[-1][3][0])
+    out.update({f"out_{k}": v for k, v in fin.items()})
+    _save(f"eval_family_{_key(FLAGSHIP)}", normals=normals,
+          plan_mean=pl0.mean, plan_sigma=pl0.sigma,
+          rewards=np.stack([np.asarray(o[2]) for *_, o in calls]),
+          ags=np.stack([np.asarray(o[3]) for *_, o in calls]),
+          n_success=np.int32(res["n_success"]),
+          success_rate=np.float32(res["success_rate"]),
+          family=np.array(EVAL_BATCH_FAMILY),
+          **{k: np.int32(v) for k, v in c.items()}, **out)
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
            f"step12_{_key(FLAGSHIP)}": make_step12, "rewards": make_rewards,
@@ -798,7 +1083,9 @@ def jobs() -> dict:
            f"mpc_step_{_key(FLAGSHIP)}": make_mpc_step,
            "mpc_loop_UR5Reach": make_mpc_loop,
            "mpc_plan_loop_UR5Reach": make_mpc_plan_loop,
-           "proprio": make_proprio}
+           "proprio": make_proprio, "eval_data": make_eval_data,
+           "eval_pick_acquire": make_eval_pick_acquire,
+           f"eval_family_{_key(FLAGSHIP)}": make_eval_family_batch}
     for e in CATALOG:
         out[f"golden_lane_{_key(e)}"] = (lambda e=e: make_golden_lane(e))
     for e in SETTLE_ENVS:
