@@ -42,14 +42,24 @@ launch of each model new to the MPC path (UR5Reach, pandaPlayAbsRPY1Obj,
 pandaPick at B=4096) step by step and every model's executed step and
 pick's acquisition step per field, and times each model's eval control
 step (`[eval step]`).
+Then the learning-from-play chain (learn/, tools/collect_play_torch.py,
+tools/train_lfp_torch.py, tools/eval_lfp_torch.py): `[lfp]` collects
+1024 play episodes x 24 steps on the flagship through the step kernel
+(its first step launch held to the plain step per field), writes the
+episode log and reads it back bit for bit, trains the 512x512 policy 200
+Adam steps on batches of 256 windows x 16 (the loss must fall; the
+forward on the card must equal the CPU's) and runs the window-goal eval
+of 64 episodes (finite metrics in LFP_EVAL.json's schema), printing each
+stage's time.
 Every phase prints its numbers and the env phases their time; any failure
-raises and the script exits non-zero without a result line. About 12-15
+raises and the script exits non-zero without a result line. About 12-16
 minutes on one H100, most of it the plain twin's steps (the H=40 check
 takes 40, the H=10 previews 50, the settle check 100 substeps).
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
 `launches` adds the counts of the main path's, the MPC path's, the env
-paths' and the eval's runs, `launches_by_path` splits them), then
+paths', the eval's and the LfP chain's runs, `launches_by_path` splits
+them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
 """
@@ -2094,6 +2104,135 @@ def eval_phase(dev):
     return launches
 
 
+LFP_B, LFP_T = 1024, 24          # play collection: envs x steps
+LFP_TRAIN, LFP_BATCH, LFP_WINDOW = 200, 256, 16
+LFP_HIDDEN = (512, 512)
+LFP_EPISODES = 64
+LFP_FIELDS = ("obs_quat", "action", "full_positional_state")
+
+
+def lfp_phase(dev):
+    """The learning-from-play chain (tools/collect_play_torch.py,
+    tools/train_lfp_torch.py, tools/eval_lfp_torch.py) at full width on
+    the flagship, depth cut: LFP_B envs x LFP_T steps of the play actor
+    through the step kernel (the reset's settle through the sim kernel),
+    the log written and read back bit for bit, LFP_TRAIN Adam steps of the
+    512x512 policy on batches of LFP_BATCH windows of LFP_WINDOW, and the
+    window-goal eval of LFP_EPISODES episodes, with the launch counts read
+    around the collection and the eval. The collection's first step launch
+    is held to the plain step per field; the last 20 losses must average
+    below the first 20, the policy's forward on the card must equal the
+    CPU's with the same parameters within 1e-5 of its scale, and the eval's
+    metrics must be finite and whole. The rates are printed, not held."""
+    import collect_play_torch as C
+    import eval_lfp_torch as EV
+    import train_lfp_torch as TR
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.learn import lfp
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.utils.episodelog import EpisodeReader
+    m = core.build_model(CATALOG[FLAGSHIP])
+    secs = {}
+
+    def collect():
+        t0 = time.perf_counter()
+        out = C.collect_play(m, "play", LFP_B, LFP_T,
+                             torch.Generator(device=dev).manual_seed(60), dev)
+        secs["collect"] = time.perf_counter() - t0
+        return out
+
+    with first_calls() as log:
+        (obs, acts, cst), launches = counted(collect)
+    say(f"[lfp] collect {LFP_B} x {LFP_T} play steps: {secs['collect']:.1f}"
+        f" s (reset {cst['reset_s']:.1f} s, steps {cst['steps_s']:.2f} s = "
+        f"{LFP_B * LFP_T / cst['steps_s']:.0f} env steps/s, copy "
+        f"{cst['copy_s']:.3f} s); launches {launches}; {card()}")
+    first = [c for c in log if c["entry"] == "step"
+             and c["inputs"][0].shape[1] == LFP_B]
+    if launches["step"] != LFP_T or launches["sim"] < 1 or len(first) != 1:
+        raise AssertionError(f"lfp collect: launches {launches}")
+    X, a = first[0]["inputs"]
+    with torch.no_grad():
+        Xk = fs.make_cuda_step(*m)(X, a)
+        Xp = fs.make_reference_step(*m)(X, a)
+    torch.cuda.synchronize()
+    check_fields(f"lfp collect step kernel B={LFP_B} vs plain",
+                 field_diffs(m.cfg, m.tree, Xk, Xp))
+
+    path = os.path.join(ROOT, "build", "lfp_smoke", "play.elog")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    fields = C.write_log(path, obs, acts)
+    with EpisodeReader(path, fields=list(fields)) as r:
+        same = r.n_episodes == LFP_B and all(
+            np.array_equal(r.read(b, k), obs[k][:, b] if k in obs
+                           else acts[:, b])
+            for b in range(LFP_B) for k in fields)
+        sampler = lfp.make_memory_sampler(r, fields=LFP_FIELDS)
+    secs["log"] = time.perf_counter() - t0
+    say(f"[lfp] log {list(fields.items())}: written and read back in "
+        f"{secs['log']:.1f} s, bit for bit: {same}")
+    if not same:
+        raise AssertionError("lfp: the episode log does not read back")
+
+    d = {k: fields[k] for k in LFP_FIELDS}
+    with torch.enable_grad():
+        policy, losses, secs["train"] = TR.train(
+            sampler, tuple(d.values()), TR.action_high(FLAGSHIP,
+                                                       d["action"]),
+            LFP_TRAIN, LFP_BATCH, LFP_WINDOW, 3e-4, LFP_HIDDEN, 0, dev,
+            log_every=0)
+    l0, l1 = float(losses[:20].mean()), float(losses[-20:].mean())
+    b = sampler(np.random.default_rng(61), LFP_BATCH, LFP_WINDOW)
+    with torch.no_grad():
+        on_card = policy(torch.tensor(b["obs"], device=dev),
+                         torch.tensor(b["goal"], device=dev)).cpu()
+        policy_cpu = lfp.GoalConditionedPolicy(
+            d["obs_quat"], d["full_positional_state"], d["action"],
+            TR.action_high(FLAGSHIP, d["action"]), LFP_HIDDEN)
+        policy_cpu.load_state_dict(policy.state_dict())
+        on_cpu = policy_cpu(torch.tensor(b["obs"]), torch.tensor(b["goal"]))
+    fwd = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    say(f"[lfp] train {LFP_TRAIN} steps {LFP_HIDDEN[0]}x{LFP_HIDDEN[1]}, "
+        f"batch {LFP_BATCH} x {LFP_WINDOW}: {secs['train']:.2f} s = "
+        f"{LFP_TRAIN / secs['train']:.1f} steps/s; loss {l0:.5f} -> {l1:.5f}"
+        f" (first / last 20); forward card vs CPU {fwd:.2e} of its scale "
+        f"(<= 1e-5); {card()}")
+    if not l1 < l0 or not fwd <= 1e-5:
+        raise AssertionError(f"lfp train: loss {l0} -> {l1}, forward {fwd}")
+
+    def evaluate():
+        t0 = time.perf_counter()
+        out = EV.evaluate(m, policy.eval(), LFP_EPISODES, LFP_WINDOW, 0,
+                          device=dev)
+        secs["eval"] = time.perf_counter() - t0
+        return out
+
+    (res_pol, res_rnd, est), ev_launches = counted(evaluate)
+    with open(os.path.join(ROOT, "LFP_EVAL.json")) as f:
+        keys = sorted(json.load(f)["policy"])       # the artifact's schema
+    say(f"[lfp] eval {LFP_EPISODES} episodes W={LFP_WINDOW}: "
+        f"{secs['eval']:.1f} s (reset {est['reset_s']:.1f} s); success "
+        f"{res_pol['success_rate_any']:.3f} vs play "
+        f"{res_rnd['success_rate_any']:.3f}, final EE "
+        f"{res_pol['final_ee_dist_mean_m']:.4f} vs "
+        f"{res_rnd['final_ee_dist_mean_m']:.4f} m (not held); launches "
+        f"{ev_launches}")
+    for res in (res_pol, res_rnd):
+        if sorted(res) != keys or not all(np.isfinite(v)
+                                          for v in res.values()):
+            raise AssertionError(f"lfp eval: {res}")
+    if ev_launches["step"] != 3 * LFP_WINDOW or ev_launches["sim"] < 1:
+        raise AssertionError(f"lfp eval: launches {ev_launches}")
+    launches = {k: launches[k] + ev_launches[k] for k in launches}
+    record("lfp", {"launches": launches, "seconds": secs,
+                   "collect": cst, "eval": est, "loss_first20": l0,
+                   "loss_last20": l1, "forward_card_vs_cpu": fwd,
+                   "policy": res_pol, "random": res_rnd})
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -2125,7 +2264,8 @@ def main():
                         ("env reset", env_reset_phase),
                         ("mpc plan loop", plan_loop_phase),
                         ("env golden", env_golden_phase),
-                        ("eval", eval_phase)):
+                        ("eval", eval_phase),
+                        ("lfp", lfp_phase)):
         t0 = time.perf_counter()
         env_launches[name] = phase(dev)
         say(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")

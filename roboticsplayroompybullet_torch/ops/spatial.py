@@ -1,8 +1,9 @@
 """Quaternion helpers over a trailing component axis (..., 4), xyzw.
 
 Port of the part of roboticsplayroompybullet_tpu/ops/spatial.py that the
-rewards and observations need. Euler conventions reproduce
-pybullet.getEulerFromQuaternion / getQuaternionFromEuler (extrinsic XYZ).
+rewards, the observations and the play actor need. Euler conventions
+reproduce pybullet.getEulerFromQuaternion / getQuaternionFromEuler
+(extrinsic XYZ).
 """
 from __future__ import annotations
 
@@ -11,6 +12,21 @@ import torch
 
 def quat_normalize(q, eps=1e-12):
     return q / torch.sqrt((q * q).sum(-1, keepdim=True) + eps)
+
+
+def quat_from_euler(rpy):
+    """pybullet.getQuaternionFromEuler equivalent: (..., 3) roll, pitch,
+    yaw → (..., 4) xyzw."""
+    r, p, y = rpy[..., 0] * 0.5, rpy[..., 1] * 0.5, rpy[..., 2] * 0.5
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], dim=-1)
 
 
 def quat_to_euler(q):

@@ -30,13 +30,20 @@ def test_every_module_imports_without_jax():
     for name in ("ops.fused_step", "solver.mpc", "solver.cost",
                  "solver.eval", "envs.obs",
                  "envs.core", "envs.wrapper", "envs.physics", "gym_registry",
-                 "parallel.rollout", "utils.spaces", "utils.render"):
+                 "parallel.rollout", "utils.spaces", "utils.render",
+                 "learn.lfp", "learn.play_policy", "utils.episodelog",
+                 "utils.checkpoint"):
         assert f"roboticsplayroompybullet_torch.{name}" in mods, name
+    tools = sorted(f[:-3] for f in os.listdir(os.path.join(tp.ROOT, "tools"))
+                   if f.endswith("_torch.py"))
+    assert {"collect_play_torch", "train_lfp_torch",
+            "eval_lfp_torch"} <= set(tools), tools
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.path.insert(0, 'tools')\n"
         "import importlib\n"
-        f"for name in {mods!r}:\n"
+        f"for name in {mods + tools!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "m.startswith(('jax', 'roboticsplayroompybullet_tpu'))]\n"

@@ -3,7 +3,7 @@ rollout at the main path's shape, its split into Jacobi sweeps / IK / the
 rest, and, given a second copy of the kernel source, the two side by side.
 
     python3 tools/time_fused_kernel.py [--source OTHER.cu] [--B 4096]
-        [--H 40] [--out timing.json]
+        [--H 40] [--step] [--out timing.json]
 
 Each source is built with nvcc into its own library (ops/cuda_build.py) and
 launched through the same Model packing, so two versions of
@@ -13,7 +13,9 @@ process, in turns: A, B, B, A. The split times the same rollout at
 solve_iters 0 and ik_iters 0 beside the full 8 / 24 (bench.py's method,
 with 0 instead of 1): the difference to the full run is the sweeps' or
 the IK's share; the rest is FK, ABA, contact gathering, effective masses,
-the warm-start sweep and integration. CUDA events, after one warm-up call.
+the warm-start sweep and integration. --step also times the package's
+`step` launch (one control step, the env step's kernel) on the same
+states and the first step's actions. CUDA events, after one warm-up call.
 Needs a CUDA card; prints `nvidia-smi`'s name and power limit first.
 """
 import argparse
@@ -115,6 +117,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also build the package's source with FS_PROFILE "
                     "and print each phase's share of the SM clocks")
+    ap.add_argument("--step", action="store_true",
+                    help="also time the package's `step` launch at B")
     ap.add_argument("--B", type=int, default=4096)
     ap.add_argument("--H", type=int, default=40)
     ap.add_argument("--out", help="write the numbers to this JSON file")
@@ -157,6 +161,13 @@ def main():
               f"ms, solve_iters=0 {sp['no_sweeps']:.3f} ms, ik_iters=0 "
               f"{sp['no_ik']:.3f} ms -> sweeps {sp['sweeps']:.3f}, IK "
               f"{sp['ik']:.3f}, rest {sp['rest']:.3f}", flush=True)
+    if args.step:
+        from roboticsplayroompybullet_torch.ops import fused_step as fs
+        stepk = fs.make_cuda_step(*m)
+        with torch.no_grad():
+            res["step_ms"] = time_ms(lambda: stepk(X, acts[0]), 10)
+        print(f"[step] B={args.B}: {res['step_ms']:.3f} ms per step launch",
+              flush=True)
     if args.profile:
         res["profile"] = profile(m, args.H, X, acts)
         print("[profile] share of SM clocks: " + ", ".join(
