@@ -37,7 +37,7 @@ step held to the plain twin) and times it beside PlayEnv.step at B=1;
 env step's fidelity) and holds its kernel launches at their own shapes.
 Then the task-competence eval (solver/eval.py): `[eval]` runs run_eval
 for the 12 families of tools/eval_mpc_torch.py at full width (4 envs x
-1024 candidates, H=10) on one batch of 20 steps, holds the first preview
+1024 candidates, H=10) on one batch of 10 steps, holds the first preview
 launch of each model new to the MPC path (UR5Reach, pandaPlayAbsRPY1Obj,
 pandaPick at B=4096) step by step and every model's executed step and
 pick's acquisition step per field, and times each model's eval control
@@ -51,15 +51,25 @@ Adam steps on batches of 256 windows x 16 (the loss must fall; the
 forward on the card must equal the CPU's) and runs the window-goal eval
 of 64 episodes (finite metrics in LFP_EVAL.json's schema), printing each
 stage's time.
+Then the gradient solvers (solver/ilqr.py, solver/gradient.py): `[ilqr]`
+runs ilqr_plan on UR5Reach (12 substeps, H=10, 3 iterations), refine on
+UR5Reach (2 Adam steps) and ilqr_plan through contact on pandaPick's
+scripted pinch (H=3, 2 iterations): each must end finite and strictly
+below its start, every forward pass a step launch (counted), with each
+iteration's time split into linearisation, Riccati and line search.
+Each model's graphed VJP (the plain twin's, replayed as a CUDA graph),
+at states other than the one it was captured at (10 x 52 UR5Reach envs,
+3 x 47 at the pinch), is held to the twin's plain autograd.
 Every phase prints its numbers and the env phases their time; any failure
-raises and the script exits non-zero without a result line. About 12-16
+raises and the script exits non-zero without a result line. About 13-17
 minutes on one H100, most of it the plain twin's steps (the H=40 check
-takes 40, the H=10 previews 50, the settle check 100 substeps).
+takes 40, the H=10 previews 50, the settle check 100 substeps) and the
+captures of its VJP graphs.
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
 `launches` adds the counts of the main path's, the MPC path's, the env
-paths', the eval's and the LfP chain's runs, `launches_by_path` splits
-them), then
+paths', the eval's, the LfP chain's and the gradient solvers' runs,
+`launches_by_path` splits them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
 """
@@ -1972,7 +1982,7 @@ def plan_loop_phase(dev):
 
 PANDA_PLAY = "pandaPlayAbsRPY1Obj-v0"
 PLAY_FAMILIES = ("block", "drawer", "door", "button", "dial")
-EVAL_STEPS = 20      # control steps a family (block 1.5x, pick's carry)
+EVAL_STEPS = 10      # control steps a family (block 1.5x, pick's carry)
 EVAL_TIMED = 5       # eval control steps timed a model, in one chain
 
 
@@ -2233,6 +2243,259 @@ def lfp_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the gradient solvers (solver/ilqr.py, solver/gradient.py)
+# ---------------------------------------------------------------------------
+
+ILQR_H, ILQR_ITERS = 10, 3       # reach: ilqr_plan's horizon and iterations
+PINCH_H, PINCH_ITERS = 3, 2      # the pinch (tests/test_ilqr.py's H)
+REFINE_ITERS, REFINE_LR = 2, 0.05    # refine: 2 Adam steps at the default lr
+VJP_MAX = 1e-5                   # graphed VJP vs eager, of the grads' scale
+
+
+@contextlib.contextmanager
+def timed_calls(mod, names, secs):
+    """While open, mod's functions `names` add the host seconds of each
+    call, between two synchronizations, to secs[name] (a list)."""
+    saved = {n: getattr(mod, n) for n in names}
+
+    def wrap(n, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs.setdefault(n, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(mod, n, wrap(n, fn))
+    try:
+        yield secs
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+
+
+def counted_grad(fn):
+    """counted() with autograd on: (fn's result, launch counts, seconds)."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    torch.cuda.synchronize()
+    fs.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fs.LAUNCHES), time.perf_counter() - t0
+
+
+def vjp_check(tag, m, state, base, H, seed):
+    """The model's differentiable step at its linearisation width B = H·n,
+    at B perturbed copies of `state` (arm joints + 0.02 rad noise, actions
+    `base` + 0.1 of the bound in noise, so some sit past it): the VJP
+    replayed from the graph the solver captured at another state, against
+    the twin's plain (eager) autograd at the same inputs and cotangents,
+    within VJP_MAX of the gradients' scale; the step's forward equal to
+    the step kernel's. Neither run counts toward the path's launches."""
+    from roboticsplayroompybullet_torch.envs import core
+    import importlib
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    IL = importlib.import_module("roboticsplayroompybullet_torch.solver.ilqr")
+    dev = state.q.device
+    x = IL._extract(state)
+    n = x.shape[1]
+    B, A, n_arm = H * n, m.cfg.action_dim, m.arm.n_arm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = fs.pack_state(m.cfg, m.tree, IL._inject(state, x.expand(B, n)))
+    X[:n_arm] += 0.02 * torch.randn((n_arm, B), generator=g, device=dev)
+    high = fs.const_on(m.cfg.action_high, dev)
+    acts = (base[:, None] + 0.1 * high[:, None] * torch.randn(
+        (A, B), generator=g, device=dev)).contiguous()
+    gX = torch.randn(X.shape, generator=g, device=dev)
+    gC = torch.randn((n_arm + 1, B), generator=g, device=dev)
+    step = core._stepper(m)
+    vj = step.vjp
+    if (dev, B) not in vj.graphs:
+        raise AssertionError(f"ilqr {tag}: no graph at B={B} to replay")
+    captures = vj.captures
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    g_k, s_rep = timed(lambda: vj(X, acts, gX, gC))
+    g_p, s_eager = timed(lambda: vj._vjp(X, acts, gX, gC))
+    with torch.no_grad():
+        Y, C = step(X, acts)
+        Yk, Ck = fs.make_cuda_step(*m, with_ctrl=True)(X, acts)
+    same_fwd = bool(torch.equal(Y, Yk) and torch.equal(C, Ck))
+    scale = max(float(t.abs().max()) for t in g_p)
+    err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p)) / scale
+    n_clip = int((acts.abs() > high[:, None]).sum())
+    say(f"[ilqr] {tag} VJP B={B} ({n_clip} actions past the bound): graph "
+        f"replay {1e3 * s_rep:.1f} ms, the twin's plain autograd (forward "
+        f"+ backward) {1e3 * s_eager:.1f} ms; replay vs plain max |d| "
+        f"{err:.2e} of the grads' scale {scale:.3g} (<= {VJP_MAX:g}); "
+        f"forward == step kernel: {same_fwd}; {card()}")
+    if not (err <= VJP_MAX and same_fwd and vj.captures == captures
+            and all(bool(torch.isfinite(t).all()) for t in g_p)):
+        raise AssertionError(f"ilqr {tag}: differentiable step {err} "
+                             f"{same_fwd}")
+    return {"B": B, "replay_ms": 1e3 * s_rep, "eager_ms": 1e3 * s_eager,
+            "max_rel_err": err, "actions_past_bound": n_clip}
+
+
+def ilqr_phase(dev):
+    """The gradient solvers at full width: every forward pass a step
+    launch, the plain twin's VJP (a CUDA graph per model and batch width,
+    captured by the solver's first linearisation) in every backward.
+    ilqr_plan on UR5Reach (12 substeps, ILQR_H, ILQR_ITERS, zero actions)
+    from JAX's reset state (fixture ilqr_reach), refine on UR5Reach
+    (fixture ilqr_refine, ILQR_H, REFINE_ITERS), then iLQR through contact
+    on pandaPick's scripted pinch (fixture ilqr_pinch; 12 substeps,
+    PINCH_H, PINCH_ITERS, the goal-only cost, from the hold plan: d cost /
+    d (x0, us) finite, max |d/dus| > 1e-3): each must end finite and
+    strictly below its start. Launches are counted around each (H for the
+    nominal rollout, H a line search, one at H·n for each linearisation)
+    and each iLQR iteration's time is split into linearisation, Riccati
+    and line search. After each model's runs, vjp_check holds its graph,
+    replayed at states it was not captured at, to the twin's eager
+    autograd."""
+    import importlib
+    from roboticsplayroompybullet_torch import interop
+    from roboticsplayroompybullet_torch.envs import core
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    from roboticsplayroompybullet_torch.solver.cost import CostWeights
+    import _torch_port as tp
+    IL = importlib.import_module("roboticsplayroompybullet_torch.solver.ilqr")
+    GR = importlib.import_module(
+        "roboticsplayroompybullet_torch.solver.gradient")
+    out, total = {}, {"sim": 0, "step": 0, "rollout": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def state_of(d):
+        return interop.state_from_numpy(
+            {f: d[f] for f in interop.FIELDS}, device=dev)
+
+    def plan(tag, m, state, us0, iters, w):
+        f = IL.make_flat_dynamics(m, state)
+        stage, final = IL.make_stage_cost(m, state, w)
+        x0 = IL._extract(state)[0]
+        with torch.no_grad():
+            _, c0 = IL._rollout_flat(f, stage, final, x0, us0)
+        secs = {}
+        with timed_calls(IL, ("_linearize", "_riccati", "_line_search"),
+                         secs):
+            res, launches, s = counted_grad(lambda: IL.ilqr_plan(
+                m, state, us0, IL.ILQRConfig(iters=iters), w))
+        add(launches)
+        H = us0.shape[0]
+        want = H + iters * (H + 1)
+        c0, c1 = float(c0), float(res.cost)
+        ok = (c1 < c0 and launches["step"] == want
+              and launches["rollout"] == launches["sim"] == 0
+              and all(bool(torch.isfinite(t).all())
+                      for t in (res.us, res.xs, res.cost_trace)))
+        split = {k: [1e3 * v for v in vs] for k, vs in secs.items()}
+        say(f"[ilqr] {tag} H={H} iters={iters}: cost {c0:.5f} -> {c1:.5f} "
+            f"(trace {[round(float(c), 5) for c in res.cost_trace]}); "
+            f"{s:.1f} s, per iteration ms: linearisation "
+            f"{[round(v, 1) for v in split['_linearize']]}, Riccati "
+            f"{[round(v, 1) for v in split['_riccati']]}, line search "
+            f"{[round(v, 1) for v in split['_line_search']]}; launches "
+            f"{launches} (want step {want}); {'ok' if ok else 'FAIL'}; "
+            f"{card()}")
+        if not ok:
+            raise AssertionError(f"ilqr {tag}: {c0} -> {c1}, {launches}")
+        return {"c0": c0, "cost": c1, "seconds": s, "launches": launches,
+                "ms": split, "trace": [float(c) for c in res.cost_trace]}
+
+    # UR5Reach: the plan's first linearisation (B = ILQR_H·n) warms the
+    # twin up and captures its VJP graph; refine replays it
+    reach = core.build_model(CATALOG["UR5Reach-v0"])
+    s_reach = state_of(tp.load("ilqr_reach"))
+    A = reach.cfg.action_dim
+    out["reach"] = plan("ilqr_plan UR5Reach", reach, s_reach,
+                        torch.zeros((ILQR_H, A), device=dev), ILQR_ITERS,
+                        CostWeights())
+    s_ref = state_of(tp.load("ilqr_refine"))
+    (a, trace), launches, s = counted_grad(lambda: GR.refine(
+        reach, s_ref, torch.zeros((ILQR_H, A), device=dev),
+        GR.GradConfig(iters=REFINE_ITERS, lr=REFINE_LR)))
+    add(launches)
+    trace = [float(c) for c in trace]
+    want = REFINE_ITERS * (ILQR_H + 1)
+    ok = (trace[-1] < trace[0] and bool(torch.isfinite(a).all())
+          and launches["step"] == want)
+    n_reach = IL._extract(s_reach).shape[1]
+    say(f"[ilqr] refine UR5Reach H={ILQR_H} iters={REFINE_ITERS} lr "
+        f"{REFINE_LR}: trace {[round(c, 5) for c in trace]}; "
+        f"{1e3 * s / REFINE_ITERS:.1f} ms per Adam iteration (rollout-level "
+        f"backward: one graphed VJP of {ILQR_H * n_reach} envs); launches "
+        f"{launches} (want step {want}); {'ok' if ok else 'FAIL'}; {card()}")
+    if not ok:
+        raise AssertionError(f"ilqr refine: {trace}, {launches}")
+    out["refine"] = {"trace": trace, "ms_per_iter": 1e3 * s / REFINE_ITERS,
+                     "launches": launches}
+    out["reach_vjp"] = vjp_check("UR5Reach", reach, s_reach,
+                                 torch.zeros(A, device=dev), ILQR_H, 71)
+
+    # iLQR through contact: the pinch on the full model; the gradient's
+    # linearisation (B = PINCH_H·n) captures pandaPick's graph
+    zp = tp.load("ilqr_pinch")
+    pick = core.build_model(CATALOG["pandaPick-v0"])
+    s_pinch = state_of(zp)
+    hold = torch.as_tensor(zp["us0"][0], device=dev)
+    us0 = hold.expand(PINCH_H, -1).contiguous()
+    w = CostWeights(action=0.0)
+    f = IL.make_flat_dynamics(pick, s_pinch)
+    stage, final = IL.make_stage_cost(pick, s_pinch, w)
+    x0 = IL._extract(s_pinch)[0].clone().requires_grad_()
+    u0 = us0.clone().requires_grad_()
+
+    def grad():
+        c = IL._rollout_flat(f, stage, final, x0, u0)[1]
+        return torch.autograd.grad(c, (x0, u0))
+
+    (gx, gu), launches, s = counted_grad(grad)
+    add(launches)
+    ok = (bool(torch.isfinite(gx).all() and torch.isfinite(gu).all())
+          and float(gu.abs().max()) > 1e-3 and int((gx != 0).sum()) > 0
+          and launches["step"] == PINCH_H + 1)
+    say(f"[ilqr] pinch d cost / d (x0, us) through contact, pandaPick "
+        f"{pick.cfg.substeps} substeps H={PINCH_H}: {s:.1f} s (the first "
+        f"linearisation at B={PINCH_H * x0.shape[0]}: warm-up and capture), "
+        f"max |d/dus| {float(gu.abs().max()):.4g} (> 1e-3), "
+        f"{int((gx != 0).sum())} nonzero d/dx0; launches {launches}; "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ilqr pinch: dead or non-finite gradient")
+    out["pinch"] = plan("ilqr_plan pinch pandaPick", pick, s_pinch, us0,
+                        PINCH_ITERS, w)
+    out["pinch"]["grad_s"] = s
+    out["pinch_vjp"] = vjp_check("pinch pandaPick", pick, s_pinch, hold,
+                                 PINCH_H, 72)
+
+    out["graphs"] = {k: {"eager": v.vjp.eager, "captures": v.vjp.captures,
+                         "replays": v.vjp.replays}
+                     for k, v in (("UR5Reach", core._stepper(reach)),
+                                  ("pandaPick", core._stepper(pick)))}
+    say(f"[ilqr] the twin's VJP on the card: {out['graphs']} (no eager "
+        "backward on the solvers' path; one capture a model at its "
+        "linearisation width)")
+    if any(v != {"eager": 0, "captures": 1, "replays": v["replays"]}
+           for v in out["graphs"].values()):
+        raise AssertionError(f"ilqr: graphs {out['graphs']}")
+    record("ilqr", out)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -2265,7 +2528,8 @@ def main():
                         ("mpc plan loop", plan_loop_phase),
                         ("env golden", env_golden_phase),
                         ("eval", eval_phase),
-                        ("lfp", lfp_phase)):
+                        ("lfp", lfp_phase),
+                        ("ilqr", ilqr_phase)):
         t0 = time.perf_counter()
         env_launches[name] = phase(dev)
         say(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")

@@ -34,6 +34,7 @@ from ..models.arms import get_arm, ArmConfig
 from ..models.kinetree import KineTree
 from ..models.playroom import Scene
 from ..ops import fused_step as fs
+from ..ops.grad_step import GradStep
 from ..ops import spatial as sp
 from .config import EnvConfig
 from .obs import calc_obs
@@ -80,8 +81,9 @@ def _fn(m: EnvModel, key, make):
 
 
 def _stepper(m: EnvModel):
-    from ..parallel import fused
-    return _fn(m, "step", lambda: fused._stepper(m, "auto", with_ctrl=True))
+    """The model's control step (ops/grad_step.py::GradStep): one `step`
+    launch on the card, differentiable through the plain twin's VJP."""
+    return _fn(m, "step", lambda: GradStep(m))
 
 
 def _settler(m: EnvModel):

@@ -391,10 +391,10 @@ def lane_sphere_aabox(c, r, box_pos, box_half):
     """c: (3, ..., B); box_pos/box_half broadcastable (3, ...).
     Returns (point, normal, depth). Mirrors contact.sphere_aabox."""
     d = c - box_pos
-    clamped = torch.clamp(d, -box_half, box_half)
+    clamped = ln.clip(d, -box_half, box_half)
     out = d - clamped
     dist = torch.sqrt((out * out).sum(0) + 1e-12)
-    n_out = out / torch.clamp_min(dist, 1e-9)[None]
+    n_out = out / ln.maximum(dist, 1e-9)[None]
     gap = box_half - torch.abs(d)                    # (3, ...)
     g0, g1, g2 = gap[0], gap[1], gap[2]
     gmin = torch.minimum(g0, torch.minimum(g1, g2))
@@ -434,7 +434,7 @@ def lane_points_aabox_ref(points, ref, box_pos, box_half):
     """Mirror of contact.points_aabox_ref: face chosen from the owning
     body's center; fallback to per-point min-axis when ref is inside."""
     d_ref = ref - box_pos                                   # (3, ..., B)
-    ratio = torch.abs(d_ref) / torch.clamp_min(box_half, 1e-6)
+    ratio = torch.abs(d_ref) / ln.maximum(box_half, 1e-6)
     r0, r1, r2 = ratio[0], ratio[1], ratio[2]
     b0 = r0 >= torch.maximum(r1, r2)
     b1 = (~b0) & (r1 >= r2)
@@ -711,8 +711,8 @@ def lane_solve(cfg: EnvConfig, scene: Scene, bundles: List[Bundle],
     for bd in bundles:
         active = bd.depth > 0.0
         af = active.to(torch.float32)
-        v_target = torch.clamp_max(
-            beta * torch.clamp_min(bd.depth - slop, 0.0) / dt, v_push_max)
+        v_target = ln.minimum(
+            beta * ln.maximum(bd.depth - slop, 0.0) / dt, v_push_max)
         r_a = bd.point - st["obj_pos"][bd.a][:, None] if bd.a >= 0 else None
         r_b = bd.point - st["obj_pos"][bd.b][:, None] if bd.b >= 0 else None
         if bd.k >= 0:
@@ -764,31 +764,31 @@ def lane_solve(cfg: EnvConfig, scene: Scene, bundles: List[Bundle],
             ua = ln.cross(pr["r_a"], d)
             term = inv_m_blk + ln.dot(ua, ln.mat33_vec(
                 inv_I_world[bd.a][:, :, None], ua))
-            k = _acc(k, term * torch.clamp_min(cnt_blk[bd.a], 1.0)[None])
+            k = _acc(k, term * ln.maximum(cnt_blk[bd.a], 1.0)[None])
         if bd.b >= 0:
             ub = ln.cross(pr["r_b"], d)
             term = inv_m_blk + ln.dot(ub, ln.mat33_vec(
                 inv_I_world[bd.b][:, :, None], ub))
-            k = _acc(k, term * torch.clamp_min(cnt_blk[bd.b], 1.0)[None])
+            k = _acc(k, term * ln.maximum(cnt_blk[bd.b], 1.0)[None])
         if bd.k >= 0:
             ja = ln.dot(pr["u_art"], d)
             sign = -1.0 if bd.a >= 0 else 1.0
             mob = art_mobile(bd.k, ja * sign)
             k = _acc(k, ja * ja * inv_m_art[bd.k] * mob
-                     * torch.clamp_min(cnt_art[bd.k], 1.0)[None])
+                     * ln.maximum(cnt_art[bd.k], 1.0)[None])
         if bd.g >= 0:
             jg = ln.dot(u_g[bd.g][:, None], d)
             k = _acc(k, jg * jg * inv_m_grip[bd.g][None]
-                     * torch.clamp_min(cnt_grip[bd.g], 1.0)[None])
+                     * ln.maximum(cnt_grip[bd.g], 1.0)[None])
         if bd.pj >= 0:
-            split = torch.clamp_min(cnt_arm, 1.0)[None]
+            split = ln.maximum(cnt_arm, 1.0)[None]
             for j in range(n_arm):
                 col = pad_J[bd.pj][j]
                 if col is None:
                     continue
                 jd = ln.dot(col[:, None], d)
                 k = _acc(k, jd * jd * inv_D_arm[j][None] * split)
-        return torch.clamp_min(k, 1e-8)
+        return ln.maximum(k, 1e-8)
 
     for bd, pr in zip(bundles, pre):
         pr["k_n"] = k_dir(bd, pr, bd.normal)
@@ -885,14 +885,14 @@ def lane_solve(cfg: EnvConfig, scene: Scene, bundles: List[Bundle],
             v_rel = rel_vel(bd, pr, ov, ow, aqd, gqd, adqd)
             vn = ln.dot(v_rel, bd.normal)
             dln = relax * (pr["v_target"] - vn) / pr["k_n"]
-            new_ln = torch.clamp_min(ln_ + dln, 0.0) * pr["af"]
+            new_ln = ln.maximum(ln_ + dln, 0.0) * pr["af"]
             dln = new_ln - ln_
             vt1 = ln.dot(v_rel, pr["t1"])
             vt2 = ln.dot(v_rel, pr["t2"])
             cap = bd.mu * new_ln
-            new_lt1 = torch.clamp(lt1 + relax * (-vt1) / pr["k_t1"],
+            new_lt1 = ln.clip(lt1 + relax * (-vt1) / pr["k_t1"],
                                   -cap, cap) * pr["af"]
-            new_lt2 = torch.clamp(lt2 + relax * (-vt2) / pr["k_t2"],
+            new_lt2 = ln.clip(lt2 + relax * (-vt2) / pr["k_t2"],
                                   -cap, cap) * pr["af"]
             imps.append(dln[None] * bd.normal
                         + (new_lt1 - lt1)[None] * pr["t1"]
@@ -911,10 +911,10 @@ def lane_solve(cfg: EnvConfig, scene: Scene, bundles: List[Bundle],
     lams, imps0 = [], []
     for bi, (bd, pr) in enumerate(zip(bundles, pre)):
         l0n, l0t1, l0t2 = lam0[bi]
-        ln_w = torch.clamp_min(l0n, 0.0) * pr["af"]
+        ln_w = ln.maximum(l0n, 0.0) * pr["af"]
         cap0 = bd.mu * ln_w
-        lt1_w = torch.clamp(l0t1, -cap0, cap0) * pr["af"]
-        lt2_w = torch.clamp(l0t2, -cap0, cap0) * pr["af"]
+        lt1_w = ln.clip(l0t1, -cap0, cap0) * pr["af"]
+        lt2_w = ln.clip(l0t2, -cap0, cap0) * pr["af"]
         imps0.append(ln_w[None] * bd.normal + lt1_w[None] * pr["t1"]
                      + lt2_w[None] * pr["t2"])
         lams.append((ln_w, lt1_w, lt2_w))
@@ -1014,8 +1014,8 @@ def make_lane_substep(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
 
         # servo_velocity_impulse (dynamics.py:172-187)
         v_star = 0.1 * (target - q) / dt
-        imp = torch.clamp(D * (v_star - qd_free), -force_c * dt, force_c * dt)
-        qd_arm = qd_free + imp / torch.clamp_min(D, 1e-9)
+        imp = ln.clip(D * (v_star - qd_free), -force_c * dt, force_c * dt)
+        qd_arm = qd_free + imp / ln.maximum(D, 1e-9)
 
         # ---- scene free-update (physics_substep:289-305)
         obj_vel = None
@@ -1029,7 +1029,7 @@ def make_lane_substep(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
         mf_c = _const(scene.art_motor_force, atpl)
         me_c = _const(artc["m_eff"], atpl)
         v_star_a = 0.1 * (mt_c - st["art_q"]) / dt
-        imp_a = torch.clamp(me_c * (v_star_a - art_qd), -mf_c * dt, mf_c * dt)
+        imp_a = ln.clip(me_c * (v_star_a - art_qd), -mf_c * dt, mf_c * dt)
         art_qd = art_qd + _const(artc["motor"], atpl) * imp_a / me_c
 
         # ---- impulse solve on post-servo kinematics (physics_substep:307+)
@@ -1051,9 +1051,9 @@ def make_lane_substep(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
 
         grip_dofs = aux["grip_dofs"]
         u_g = aux["u_g"]
-        inv_m_grip = [1.0 / torch.clamp_min(D[d], 1e-4) for d in grip_dofs]
+        inv_m_grip = [1.0 / ln.maximum(D[d], 1e-4) for d in grip_dofs]
         grip_qd0 = [qd_arm[d] for d in grip_dofs]
-        inv_D_arm = [1.0 / torch.clamp_min(D[j], 1e-4) for j in range(n_arm)]
+        inv_D_arm = [1.0 / ln.maximum(D[j], 1e-4) for j in range(n_arm)]
 
         ov, ow, aqd, gqd, adqd, lams = lane_solve(
             cfg, scene, bundles, st2, inv_I_world, inv_m_blk,
@@ -1071,10 +1071,10 @@ def make_lane_substep(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
 
         # ---- integrate (physics_substep:330-354)
         q_next = q + dt * qd_arm
-        q_new = torch.clamp(q_next, lower_c, upper_c)
-        qd_new = torch.where(q_next < lower_c, torch.clamp_min(qd_arm, 0.0),
+        q_new = ln.clip(q_next, lower_c, upper_c)
+        qd_new = torch.where(q_next < lower_c, ln.maximum(qd_arm, 0.0),
                              torch.where(q_next > upper_c,
-                                         torch.clamp_max(qd_arm, 0.0),
+                                         ln.minimum(qd_arm, 0.0),
                                          qd_arm))
         out = dict(st)
         out["q"] = q_new
@@ -1089,7 +1089,7 @@ def make_lane_substep(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
                 ln.quat_integrate(st["obj_quat"][o], ow_s[o], dt)
                 for o in range(n_obj)])
         art_q = st["art_q"] + dt * aqd
-        art_q_c = torch.clamp(art_q, _const(scene.art_lower, atpl),
+        art_q_c = ln.clip(art_q, _const(scene.art_lower, atpl),
                               _const(scene.art_upper, atpl))
         out["art_qd"] = torch.where(art_q != art_q_c, 0.0, aqd)
         out["art_q"] = art_q_c
@@ -1251,7 +1251,7 @@ def _chol6_solve(A, bs):
         acc = A[j][j]
         for k in range(j):
             acc = _acc(acc, -_mul(L[j][k], L[j][k]))
-        Ljj = torch.sqrt(torch.clamp_min(acc, 1e-12))
+        Ljj = torch.sqrt(ln.maximum(acc, 1e-12))
         L[j][j] = Ljj
         inv = 1.0 / Ljj
         for i in range(j + 1, 6):
@@ -1347,11 +1347,11 @@ def lane_ik_dls(tree: KineTree, arm: ArmConfig, q0, target_pos, target_quat,
                     jt_nul = sum6(_mul(cols[i][r], w_null[r])
                                   for r in range(6))
                     d = _acc(_acc(jt_err, dq_null[i]), -jt_nul)
-                d = torch.clamp(_lane_of(d, q[0]), -0.5, 0.5)
+                d = ln.clip(_lane_of(d, q[0]), -0.5, 0.5)
             else:
                 d = torch.zeros_like(q[0])
             dq_rows.append(d)
-        q = torch.clamp(q + torch.stack(dq_rows), lower_c, upper_c)
+        q = ln.clip(q + torch.stack(dq_rows), lower_c, upper_c)
     return q.to(dtype)
 
 
@@ -1371,7 +1371,7 @@ def lane_quat_to_euler(qv):
     sinr = 2.0 * (w * x + y * z)
     cosr = 1.0 - 2.0 * (x * x + y * y)
     roll = torch.atan2(sinr, cosr)
-    sinp = torch.clamp(2.0 * (w * y - z * x), -1.0 + 1e-7, 1.0 - 1e-7)
+    sinp = ln.clip(2.0 * (w * y - z * x), -1.0 + 1e-7, 1.0 - 1e-7)
     pitch = torch.asin(sinp)
     siny = 2.0 * (w * z + x * y)
     cosy = 1.0 - 2.0 * (y * y + z * z)
@@ -1398,7 +1398,7 @@ def make_lane_control(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
         q, action = q.double(), action.double()
         tpl = q[0]
         high = _const(np.asarray(cfg.action_high, f32), tpl)
-        action = torch.clamp(action, -high, high)
+        action = ln.clip(action, -high, high)
         grip = action[action.shape[0] - 1]
         pos_l, quat_l = lane_fk_links(tree, q)
         ee_pos, ee_quat = _lane_site_pose(tree, pos_l, quat_l, arm.ee_site)
@@ -1437,9 +1437,9 @@ def make_lane_control(cfg: EnvConfig, tree: KineTree, arm: ArmConfig,
         ll = _const(np.asarray(arm.ctrl_lower, f32), tpl)
         ul = _const(np.asarray(arm.ctrl_upper, f32), tpl)
         inc = _const(np.asarray(arm.rate_limit, f32), tpl)
-        targets = torch.clamp(targets, ll, ul)
+        targets = ln.clip(targets, ll, ul)
         cur = q[:n_arm]
-        targets = torch.clamp(targets, cur - inc, cur + inc)
+        targets = ln.clip(targets, cur - inc, cur + inc)
         return targets.to(dtype), grip.to(dtype)
 
     return control

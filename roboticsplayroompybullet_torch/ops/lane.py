@@ -10,6 +10,38 @@ from __future__ import annotations
 
 import torch
 
+_SCALARS: dict = {}
+
+
+def _bound(c, like: torch.Tensor) -> torch.Tensor:
+    """A python-number bound as a 0-d tensor of like's dtype and device,
+    copied there once (a tensor bound is returned as it is)."""
+    if isinstance(c, torch.Tensor):
+        return c
+    key = (float(c), like.dtype, like.device)
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(c, dtype=like.dtype,
+                                         device=like.device)
+    return t
+
+
+# jnp.maximum / minimum / clip: the values of torch.clamp_min / clamp_max /
+# clamp, with JAX's derivative at a tie (half of the gradient to each
+# side), where torch.clamp passes all of it: an action at its bound and a
+# joint at its limit sit exactly there, so the twin's Jacobians there are
+# JAX's lane twin's
+def maximum(x: torch.Tensor, c) -> torch.Tensor:
+    return torch.maximum(x, _bound(c, x))
+
+
+def minimum(x: torch.Tensor, c) -> torch.Tensor:
+    return torch.minimum(x, _bound(c, x))
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    return minimum(maximum(x, lo), hi)
+
 
 def dot(a, b):
     return (a * b).sum(0)
@@ -94,7 +126,7 @@ def mat33_vec(M, v):
 def quat_integrate(q, omega, dt):
     """Exponential-map update, mirroring spatial.quat_integrate."""
     angle = norm(omega)
-    axis = omega / torch.clamp_min(angle, 1e-9)[None]
+    axis = omega / maximum(angle, 1e-9)[None]
     half = angle * (dt * 0.5)
     s = torch.sin(half)
     dq = torch.stack([axis[0] * s, axis[1] * s, axis[2] * s, torch.cos(half)])

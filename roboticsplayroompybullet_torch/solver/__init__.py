@@ -1,5 +1,6 @@
-"""Sampling MPC over the fused rollout kernel and its task-competence eval
-(port of the single-device paths of roboticsplayroompybullet_tpu/solver)."""
+"""Sampling MPC over the fused rollout kernel, its task-competence eval and
+the gradient solvers, iLQR and the Adam refiner (port of the
+single-device paths of roboticsplayroompybullet_tpu/solver)."""
 from .cost import CostWeights, goal_distance, trajectory_cost
 from .mpc import (MPCConfig, PlanState, init_plan, init_plan_from_state,
                   init_batched_plan, shift_plan, plan, mpc_rollout,
@@ -8,6 +9,8 @@ from .mpc import (MPCConfig, PlanState, init_plan, init_plan_from_state,
 from .eval import (GOAL_FAMILIES, PICK_FAMILY, family_goals,
                    family_site_params, make_play_cost, make_pick_cost,
                    pick_params, eval_family, eval_pick, run_eval)
+from .ilqr import ILQRConfig, ILQRResult, ilqr, ilqr_plan
+from .gradient import GradConfig, refine
 
 __all__ = [
     "CostWeights", "goal_distance", "trajectory_cost",
@@ -18,4 +21,6 @@ __all__ = [
     "GOAL_FAMILIES", "PICK_FAMILY", "family_goals", "family_site_params",
     "make_play_cost", "make_pick_cost", "pick_params", "eval_family",
     "eval_pick", "run_eval",
+    "ILQRConfig", "ILQRResult", "ilqr", "ilqr_plan",
+    "GradConfig", "refine",
 ]

@@ -27,8 +27,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    for name in ("ops.fused_step", "solver.mpc", "solver.cost",
-                 "solver.eval", "envs.obs",
+    for name in ("ops.fused_step", "ops.grad_step", "solver.mpc",
+                 "solver.cost", "solver.eval", "solver.ilqr",
+                 "solver.gradient", "envs.obs",
                  "envs.core", "envs.wrapper", "envs.physics", "gym_registry",
                  "parallel.rollout", "utils.spaces", "utils.render",
                  "learn.lfp", "learn.play_policy", "utils.episodelog",

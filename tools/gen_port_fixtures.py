@@ -76,6 +76,9 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/solver/cost.py",
      "roboticsplayroompybullet_tpu/solver/mpc.py",
      "roboticsplayroompybullet_tpu/solver/eval.py",
+     "roboticsplayroompybullet_tpu/solver/ilqr.py",
+     "roboticsplayroompybullet_tpu/solver/gradient.py",
+     "roboticsplayroompybullet_tpu/parallel/rollout.py",
      "roboticsplayroompybullet_tpu/envs/obs.py",
      "roboticsplayroompybullet_tpu/ops/dynamics.py",
      "roboticsplayroompybullet_tpu/ops/spatial.py",
@@ -1075,8 +1078,225 @@ def make_eval_family_batch():
           **{k: np.int32(v) for k, v in c.items()}, **out)
 
 
+# ---------------------------------------------------------------------------
+# gradient solvers (solver/ilqr.py, solver/gradient.py)
+# ---------------------------------------------------------------------------
+
+def _batched(st: EnvState) -> dict:
+    """One env's state as a B=1 state dict (batch leading)."""
+    return {f: np.asarray(getattr(st, f))[None] for f in STATE_FIELDS}
+
+
+def _lane_flat_dynamics(m, template):
+    """make_flat_dynamics with the JAX lane twin (make_lane_control, then
+    make_lane_sim at solve 8: make_reference_step's body) in place of the
+    vmap oracle, on one env: the function the port's iLQR differentiates.
+    The action is clipped once, inside make_lane_control, as the oracle's
+    step_physics_only clips it once (the derivative at a bound is half
+    the gradient per clip). Object fields of a 0-object env pass through,
+    as the oracle's do."""
+    from roboticsplayroompybullet_tpu.solver.ilqr import _extract, _inject
+    control = fs.make_lane_control(m.cfg, m.tree, m.arm)
+    sim = fs.make_lane_sim(m.cfg, m.tree, m.arm, m.scene, None,
+                           solve_iters=8)
+    _, NF = fs._field_rows(m.cfg, m.tree)
+
+    def f(x, u):
+        s = jax.tree.map(lambda v: v[None], _inject(template, x))
+        X3 = fs.pack_state(m.cfg, m.tree, s).reshape(NF, 1, 1)
+        st = fs._lanes_from_block(m.cfg, m.tree, X3)
+        ctrl, grip = control(st["q"], u[:, None, None])
+        X2 = fs._block_from_lanes(m.cfg, m.tree, sim(st, ctrl, grip))
+        s2 = fs.unpack_state(m.cfg, m.tree, X2.reshape(NF, 1), s)
+        s2 = s2.replace(ctrl_q=ctrl.reshape(1, -1), grip=grip.reshape(1))
+        return _extract(jax.tree.map(lambda v: v[0], s2))
+
+    return f
+
+
+def _pinched_state():
+    """tests/test_ilqr.py::test_ilqr_plan_improves_pick_contact's scripted
+    pinch on the full 12-substep pandaPick model (PRNGKey 3), with the
+    block's reset position and the hold pose's rpy."""
+    from roboticsplayroompybullet_tpu.ops import kinematics as K
+    from roboticsplayroompybullet_tpu.ops import spatial as sp
+    mfull = core.build_model(CATALOG["pandaPick-v0"])
+    state, obs = jax.jit(lambda k: core.reset(mfull, k))(
+        jax.random.PRNGKey(3))
+    step = jax.jit(lambda s, a: core.step(mfull, s, a))
+    rest = jnp.zeros(mfull.tree.n_dof, jnp.float32).at[
+        :mfull.arm.n_arm].set(jnp.asarray(mfull.arm.rest_pose, jnp.float32))
+    _, q0, _ = K.site_pose_and_jacobian(mfull.tree, rest, mfull.arm.ee_site)
+    rpy = tuple(float(x) for x in np.asarray(sp.quat_to_euler(q0)))
+
+    def go(st, pos, grip, n):
+        a = jnp.asarray([*pos, *rpy, grip], jnp.float32)
+        for _ in range(n):
+            st, _, _, _ = step(st, a)
+        return st
+
+    b = np.asarray(state.obj_pos[0])
+    ee0 = np.asarray(obs["controllable_achieved_goal"])[:3]
+    st = go(state, (ee0[0], ee0[1], 0.15), -1.0, 20)
+    st = go(st, (b[0], b[1], 0.15), -1.0, 25)
+    for zt in np.arange(0.12, b[2] + 0.005, -0.03):
+        st = go(st, (b[0], b[1], zt), -1.0, 8)
+    st = go(st, (b[0], b[1], b[2] + 0.008), -1.0, 20)
+    st = go(st, (b[0], b[1], b[2] + 0.008), 1.0, 15)         # pinch
+    return st, b, rpy
+
+
+def _ilqr_imports():
+    """(the solver package, its ilqr module: the package's `ilqr` is the
+    function)."""
+    import importlib
+    from roboticsplayroompybullet_tpu import solver as sol
+    return sol, importlib.import_module(
+        "roboticsplayroompybullet_tpu.solver.ilqr")
+
+
+def make_ilqr_di():
+    """ilqr on test_ilqr_double_integrator's point mass, and its c0."""
+    _, il = _ilqr_imports()
+    dt = 0.1
+
+    def f(x, u):
+        return jnp.stack([x[0] + x[1] * dt, x[1] + u[0] * dt])
+
+    def stage(x, u):
+        return 0.1 * (x @ x) + 0.01 * (u @ u)
+
+    def final(x):
+        return 100.0 * (x @ x)
+
+    x0 = jnp.array([1.0, 0.0])
+    us0 = jnp.zeros((30, 1))
+    res = jax.jit(lambda x, u: il.ilqr(f, stage, final, x, u,
+                                       il.ILQRConfig(iters=15)))(x0, us0)
+    _, c0 = il._rollout_flat(f, stage, final, x0, us0)
+    _save("ilqr_di", x0=x0, us0=us0, us=res.us, xs=res.xs, cost=res.cost,
+          cost_trace=res.cost_trace, c0=c0)
+
+
+def _jacfwd(g, x, u):
+    """(∂g/∂x, ∂g/∂u) in forward mode, op by op: the matrices JAX's
+    iLQR's jacrev gives. XLA took over 25 minutes and ~28 GB to compile
+    jacrev of the oracle step here, and over 20 GB for jacfwd of the lane
+    twin; op by op the lane twin's takes minutes."""
+    with jax.disable_jit():
+        return jax.jacfwd(g, argnums=(0, 1))(x, u)
+
+
+def _fwd_linearised(f):
+    """f with a custom VJP from its forward-mode Jacobian: under
+    ilqr.py's jacrev it gives the same A_t, B_t as f, and its jitted
+    programs compile in minutes (the reverse mode of the oracle's contact
+    loops does not)."""
+    @jax.custom_vjp
+    def g(x, u):
+        return f(x, u)
+
+    def fwd(x, u):
+        return f(x, u), jax.jacfwd(f, argnums=(0, 1))(x, u)
+
+    def bwd(jac, ct):
+        return ct @ jac[0], ct @ jac[1]
+
+    g.defvjp(fwd, bwd)
+    return g
+
+
+def _plan(sol, il, m, state, us0, cfg, w):
+    """ilqr_plan (ilqr.py:210-218) line for line, its dynamics
+    linearised in forward mode (_fwd_linearised)."""
+    f = _fwd_linearised(il.make_flat_dynamics(m, state))
+    stage, final = il.make_stage_cost(m, state, w)
+    high = jnp.asarray(m.cfg.action_high, jnp.float32)
+    return jax.jit(lambda x, u: il.ilqr(f, stage, final, x, u, cfg,
+                                        u_low=-high, u_high=high))(
+        il._extract(state), us0)
+
+
+def make_ilqr_reach():
+    """test_ilqr_plan_improves_reach's case: UR5Reach at 3 substeps from
+    PRNGKey 2; the flat state, the Jacobians of the lane twin and of the
+    oracle at (x0, 0), c0 and ilqr_plan H=4 iters=4."""
+    sol, il = _ilqr_imports()
+    from roboticsplayroompybullet_tpu.solver.cost import CostWeights
+    m = core.build_model(dataclasses.replace(
+        CATALOG["UR5Reach-v0"], substeps=3))
+    state, _ = jax.jit(lambda k: core.reset(m, k))(jax.random.PRNGKey(2))
+    us0 = jnp.zeros((4, m.cfg.action_dim))
+    f = il.make_flat_dynamics(m, state)
+    stage, final = il.make_stage_cost(m, state)
+    x0 = il._extract(state)
+    _, c0 = il._rollout_flat(f, stage, final, x0, us0)
+    lane = _lane_flat_dynamics(m, state)
+    A_o, B_o = _jacfwd(f, x0, us0[0])
+    A_l, B_l = _jacfwd(lane, x0, us0[0])
+    res = _plan(sol, il, m, state, us0, sol.ILQRConfig(iters=4),
+                CostWeights())
+    _save("ilqr_reach", x0=x0, us0=us0, x1_oracle=jax.jit(f)(x0, us0[0]),
+          x1_lane=jax.jit(lane)(x0, us0[0]), A_oracle=A_o, B_oracle=B_o,
+          A_lane=A_l, B_lane=B_l, c0=c0, us=res.us, xs=res.xs,
+          cost=res.cost, cost_trace=res.cost_trace, substeps=np.int32(3),
+          **_batched(state))
+
+
+def make_ilqr_pinch():
+    """test_ilqr_plan_improves_pick_contact's case: the pinch scripted on
+    the full model, planned at 2 substeps from the hold plan (H=3) with
+    the goal-only cost; the flat state, the lane twin's Jacobians at
+    (x0, us0[0]), c0, d cost / d (x0, us) (forward mode) and ilqr_plan
+    iters=3."""
+    sol, il = _ilqr_imports()
+    from roboticsplayroompybullet_tpu.solver.cost import CostWeights
+    st, b, rpy = _pinched_state()
+    m = core.build_model(dataclasses.replace(
+        CATALOG["pandaPick-v0"], substeps=2))
+    H = 3
+    hold = jnp.asarray([b[0], b[1], b[2] + 0.10, *rpy, 1.0], jnp.float32)
+    us0 = jnp.tile(hold[None], (H, 1))
+    w = CostWeights(action=0.0)
+    f = il.make_flat_dynamics(m, st)
+    stage, final = il.make_stage_cost(m, st, w)
+    x0 = il._extract(st)
+    _, c0 = il._rollout_flat(f, stage, final, x0, us0)
+    gx, gu = jax.jit(jax.jacfwd(
+        lambda x, u: il._rollout_flat(f, stage, final, x, u)[1],
+        argnums=(0, 1)))(x0, us0)
+    lane = _lane_flat_dynamics(m, st)
+    A_l, B_l = _jacfwd(lane, x0, us0[0])
+    res = _plan(sol, il, m, st, us0, sol.ILQRConfig(iters=3), w)
+    _save("ilqr_pinch", x0=x0, us0=us0, x1_lane=jax.jit(lane)(x0, us0[0]),
+          x1_oracle=jax.jit(f)(x0, us0[0]), A_lane=A_l, B_lane=B_l, c0=c0,
+          gx=gx, gu=gu, us=res.us, xs=res.xs, cost=res.cost,
+          cost_trace=res.cost_trace, substeps=np.int32(2), **_batched(st))
+
+
+def make_ilqr_refine():
+    """test_gradient_refine_improves_reach's case, its code as there:
+    refine on UR5Reach at 3 substeps from PRNGKey 5, H=4, 12 iterations
+    at lr 0.1."""
+    sol, _ = _ilqr_imports()
+    m = core.build_model(dataclasses.replace(
+        CATALOG["UR5Reach-v0"], substeps=3))
+    state, _ = jax.jit(lambda k: core.reset(m, k))(jax.random.PRNGKey(5))
+    us0 = jnp.zeros((4, m.cfg.action_dim))
+    cfg = sol.GradConfig(iters=12, lr=0.1)
+    a, trace = jax.jit(lambda s, u: sol.refine(m, s, u, cfg))(state, us0)
+    _save("ilqr_refine", us0=us0, actions=a, trace=trace, lr=np.float32(0.1),
+          substeps=np.int32(3), **_batched(state))
+
+
+# the gradient solvers' jobs, on tests/test_ilqr.py's cases
+ILQR_JOBS = {"ilqr_di": make_ilqr_di, "ilqr_reach": make_ilqr_reach,
+             "ilqr_pinch": make_ilqr_pinch, "ilqr_refine": make_ilqr_refine}
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
+           "ilqr": lambda: [job() for job in ILQR_JOBS.values()],
            f"step12_{_key(FLAGSHIP)}": make_step12, "rewards": make_rewards,
            "mpc_cost": make_mpc_cost, "mpc_init": make_mpc_init,
            "mpc_sample": make_mpc_sample, "mpc_update": make_mpc_update,
@@ -1086,6 +1306,7 @@ def jobs() -> dict:
            "proprio": make_proprio, "eval_data": make_eval_data,
            "eval_pick_acquire": make_eval_pick_acquire,
            f"eval_family_{_key(FLAGSHIP)}": make_eval_family_batch}
+    out.update(ILQR_JOBS)
     for e in CATALOG:
         out[f"golden_lane_{_key(e)}"] = (lambda e=e: make_golden_lane(e))
     for e in SETTLE_ENVS:
