@@ -24,6 +24,15 @@ inputs (the H=10 previews step by step, the B=4 and B=1 executed steps),
 and its times: ms per replan (pop=1024, H=10, 2 iterations) beside the
 preview kernel's, ms per eval control step split into previews and the
 executed step.
+Then the multi-device layer (parallel/mesh.py, the sharded paths,
+tools/launch_distributed_torch.py): `[multi]` starts NCCL at world size 1
+on the card, runs make_sharded_fused_rollout on the main path's inputs
+(B=4096, H=40) and the sharded fused planner (pop=1024, H=10) by MPPI and
+by CEM, each of which must equal its unsharded counterpart bit for bit,
+dryrun_multichip(1), and the launcher (3 steps, a checkpoint, a relaunch
+that resumes from it); it prints the sharded times beside the unsharded
+ones and, from a torch.profiler trace of the sharded replan, its NCCL
+kernels' device time and its host time inside the collective calls.
 Then the env layer (envs/core.py, envs/wrapper.py, parallel/rollout.py):
 `[env golden]` replays the 19 goldens through PlayEnv on the card (the
 step kernel at B=1), free-running against the golden and teacher-forced
@@ -60,15 +69,19 @@ iteration's time split into linearisation, Riccati and line search.
 Each model's graphed VJP (the plain twin's, replayed as a CUDA graph),
 at states other than the one it was captured at (10 x 52 UR5Reach envs,
 3 x 47 at the pinch), is held to the twin's plain autograd.
-Every phase prints its numbers and the env phases their time; any failure
-raises and the script exits non-zero without a result line. About 13-17
-minutes on one H100, most of it the plain twin's steps (the H=40 check
-takes 40, the H=10 previews 50, the settle check 100 substeps) and the
-captures of its VJP graphs.
+Every phase prints its numbers and its time; any failure raises and the
+script exits non-zero without a result line. The plain twin is
+host-bound (~10^5 small launches a control step, 7-11 s whatever the
+batch): the twin phase calls it eagerly once a kernel (its time is the
+plain version's) and holds its replay from CUDA graphs (plain_sim /
+plain_step / plain_rollout, a piece at a time) equal to it bit for bit;
+every later check steps that replay. The captures of the solvers' VJP
+graphs and the eager autograd they are held to take another ~2 minutes.
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
-`launches` adds the counts of the main path's, the MPC path's, the env
-paths', the eval's, the LfP chain's and the gradient solvers' runs,
+`launches` adds the counts of the main path's, the MPC path's, the
+multi-device paths', the env paths', the eval's, the LfP chain's and the
+gradient solvers' runs,
 `launches_by_path` splits them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
@@ -353,8 +366,9 @@ def time_ms(fn, reps, warm=True):
 def twin_phase(m, dev):
     """Kernel vs plain PyTorch twin on the card, per field, at the main
     path's batch (B=4096; the rollout at H=2). Returns each kernel's max
-    error, the inputs, and the device ms of each plain call (the first
-    plain time of timing_phase's pairs)."""
+    error, the inputs, and the device ms of each plain call (the plain
+    time timing_phase reports); holds the plain twin replayed from CUDA
+    graphs equal to these eager calls."""
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     cfg, tree = m.cfg, m.tree
     B = 4096
@@ -404,6 +418,17 @@ def twin_phase(m, dev):
         if float(dag.max()) > POS_MAX:
             raise AssertionError("rollout kernel ags differ from the plain")
         err["rollout"] = max(e, float(dag.max()))
+        # the plain twin replayed from CUDA graphs, the later phases'
+        # oracle, is this eager one bit for bit
+        same = {"sim": torch.equal(plain_sim(*m)(X, ctrl, grip), p),
+                "step": torch.equal(plain_step(*m)(X, acts[0]), ps),
+                "rollout": all(map(torch.equal, plain_rollout(
+                    *m, horizon=H)(X, acts), (pr, pag)))}
+        say(f"[twin] the plain twin replayed from CUDA graphs == eager, bit "
+            f"for bit: {same}")
+        record("graphed_twin_equal", same)
+        if not all(same.values()):
+            raise AssertionError("the graphed plain twin is not the eager")
         # whole-horizon kernel == H applications of the step kernel
         Xs = X
         for h in range(H):
@@ -561,32 +586,142 @@ def env_error(A, B, pos_rows):
     return ((A - B).abs() / lim[:, None]).amax(0)
 
 
-def replayed(fn, *example):
-    """The plain twin's fn (tensors in, a tensor out) captured as a CUDA
-    graph on inputs shaped as `example`: call(*xs) copies xs into the
-    captured inputs, replays the graph, and returns a copy of the output.
+GRAPHS = {}     # (piece, input shapes and dtypes) -> its CUDA graph
+WARM = {}       # (piece, dtypes) whose constants the twin has cached
+
+
+def replay(cfg, piece, fn, *xs):
+    """fn(*xs) (tensors in, a list of tensors out) replayed from a CUDA
+    graph captured the first time cfg's `piece` meets these input shapes
+    and dtypes; returns copies of the outputs. One eager call a piece and
+    dtype first makes the constants the twin caches outside any capture.
+    The graphs hold cfg, so its id names it until free_graphs()."""
+    dtypes = tuple(x.dtype for x in xs)
+    piece = (id(cfg),) + piece
+    key = (piece, tuple(tuple(x.shape) for x in xs), dtypes)
+    if key not in GRAPHS:
+        static = [x.clone() for x in xs]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        if (piece, dtypes) not in WARM:
+            with torch.cuda.stream(side):
+                fn(*static)
+            WARM[piece, dtypes] = cfg
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*static)
+        GRAPHS[key] = (static, graph, out, cfg)
+    static, graph, out, _ = GRAPHS[key]
+    for dst, x in zip(static, xs):
+        dst.copy_(x)
+    graph.replay()
+    return [o.clone() for o in out]
+
+
+def plain_sim(cfg, tree, arm, scene, n_substeps=None, solve_iters=8):
+    """fs.make_reference_sim's plain twin, replayed a substep at a time.
+
     Eagerly the plain twin is host-bound (~10^5 small launches a control
     step, 7-11 s on the card's host whatever the batch); replayed, the
-    same kernels on the same inputs run back to back, so a check that
-    steps the plain twin many times at one shape costs seconds, not
-    minutes. A warm-up call first makes the constants the twin caches
-    outside the capture."""
-    static = [x.clone() for x in example]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(*static)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn(*static)
+    same kernels on the same inputs run back to back, bit for bit
+    (twin_phase holds that). A capture costs about one eager call of its
+    piece, so the twin is captured a piece at a time, each reused at its
+    shape: the first substep (a zero warm start), a warm-started one
+    (make_lane_sim's loop), and the control (plain_step)."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    sub = fs.make_lane_substep(cfg, tree, arm, scene, solve_iters=solve_iters)
+    n = cfg.substeps if n_substeps is None else n_substeps
+    tag = ("substep", solve_iters)
 
-    def call(*xs):
-        for dst, x in zip(static, xs):
-            dst.copy_(x)
-        graph.replay()
-        return out.clone()
-    return call
+    def substep(X, ctrl, grip, *lam):
+        lam0 = [lam[i:i + 3] for i in range(0, len(lam), 3)] or None
+        st, lam = sub(fs._lanes_from_block(cfg, tree, X), ctrl, grip, lam0)
+        return [fs._block_from_lanes(cfg, tree, st)] + [
+            t for trip in lam for t in trip]
+
+    def sim_B(X, ctrl, grip):
+        X, *lam = replay(cfg, tag + ("first",), substep, X, ctrl, grip)
+        for _ in range(n - 1):
+            X, *lam = replay(cfg, tag + ("warm",), substep, X, ctrl, grip,
+                             *lam)
+        return X
+
+    return sim_B
+
+
+def plain_step(cfg, tree, arm, scene, n_substeps=None, ik_iters=None,
+               solve_iters=8, with_ctrl=False):
+    """fs.make_reference_step's plain twin: its control replayed, then
+    plain_sim."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    control = fs.make_lane_control(cfg, tree, arm, ik_iters=ik_iters)
+    sim = plain_sim(cfg, tree, arm, scene, n_substeps, solve_iters)
+
+    def ctl(X, actions):
+        return list(control(fs._lanes_from_block(cfg, tree, X)["q"],
+                            actions))
+
+    def step_B(X, actions):
+        ctrl, grip = replay(cfg, ("control", ik_iters), ctl, X, actions)
+        X2 = sim(X, ctrl, grip)
+        if with_ctrl:
+            return X2, torch.cat([ctrl, grip[None]], dim=0)
+        return X2
+
+    return step_B
+
+
+def plain_rollout(cfg, tree, arm, scene, horizon, n_substeps=None,
+                  ik_iters=None, solve_iters=8, with_ee=False):
+    """fs.make_reference_rollout's plain twin over plain_step."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    step = plain_step(cfg, tree, arm, scene, n_substeps=n_substeps,
+                      ik_iters=ik_iters, solve_iters=solve_iters)
+    ag_of = fs.make_lane_ag(cfg, tree, arm, with_ee)
+
+    def roll_B(X, actions):
+        ags = []
+        for h in range(horizon):
+            X = step(X, actions[h])
+            ags.append(ag_of(X))
+        return X, torch.stack(ags)
+
+    return roll_B
+
+
+def padded(fn, *xs):
+    """fn(*xs) on envs (the last axis) padded to the next power of two, at
+    least 8, with copies of the first env, and cut back: the twin's envs
+    are independent columns, and few widths keep its graphs few."""
+    n = xs[0].shape[-1]
+    w = max(8, 1 << (n - 1).bit_length())
+    out = fn(*(torch.cat([x, x[..., :1].expand(*x.shape[:-1], w - n)], -1)
+               for x in xs))
+    return out[..., :n]
+
+
+def free_graphs():
+    GRAPHS.clear()
+    WARM.clear()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_graphs():
+    """While open, fs.make_reference_sim / _step / _rollout are plain_sim /
+    _step / _rollout, for a path that builds its plain twin through them
+    (the MPC step's reference backend)."""
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    made = (fs.make_reference_sim, fs.make_reference_step,
+            fs.make_reference_rollout)
+    fs.make_reference_sim, fs.make_reference_step = plain_sim, plain_step
+    fs.make_reference_rollout = plain_rollout
+    try:
+        yield
+    finally:
+        (fs.make_reference_sim, fs.make_reference_step,
+         fs.make_reference_rollout) = made
 
 
 def judge_step(cfg, tree, pos_rows, Xk, Yt):
@@ -635,8 +770,7 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
     pos_rows = position_rows(cfg, tree, dev)
     bad, per_step = [], []
     with torch.no_grad():
-        step_p = replayed(fs.make_reference_step(*m),
-                          torch.cat([X0, X0], 1), torch.cat([a[0], a[0]], 1))
+        step_p = plain_step(*m)
         kr, kag = fs.make_cuda_rollout(*m, horizon=H)(X0, a)
         Xk, Xf, dag, ags_p = X0, X0, 0.0, []
         for h in range(H):
@@ -705,37 +839,30 @@ def horizon_twin_phase(m, dev, states, acts, kernel_out):
 
 
 def timing_phase(m, dev, inputs, plain_first):
-    """Each kernel and its plain version at B=4096 (rollout at H=2) on the
-    twin phase's inputs, in turns: plain (the twin phase's check call),
-    kernel, kernel, plain (one cold call: the plain twin is host-bound, its
-    first call costs what a later one does); the rollout kernel's batch
-    scaling at H=40 and its split into Jacobi sweeps / IK / the rest."""
+    """Each kernel at B=4096 (rollout at H=2) on the twin phase's inputs,
+    twice, beside its plain version's eager call there (one cold call: the
+    plain twin is host-bound, ~10^4 times the kernel, and its first call
+    costs what a later one does); the rollout kernel's batch scaling at
+    H=40 and its split into Jacobi sweeps / IK / the rest."""
     from roboticsplayroompybullet_torch.ops import cuda_build
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     B, H = 4096, 2
     X, ctrl, grip, acts = inputs
     rs = np.random.RandomState(6)
-    pairs = {
-        "sim": (lambda f=fs.make_cuda_sim(*m): f(X, ctrl, grip),
-                lambda f=fs.make_reference_sim(*m): f(X, ctrl, grip)),
-        "step": (lambda f=fs.make_cuda_step(*m): f(X, acts[0]),
-                 lambda f=fs.make_reference_step(*m): f(X, acts[0])),
-        "rollout": (lambda f=fs.make_cuda_rollout(*m, horizon=H): f(X, acts),
-                    lambda f=fs.make_reference_rollout(*m, horizon=H):
-                    f(X, acts)),
+    kernels = {
+        "sim": lambda f=fs.make_cuda_sim(*m): f(X, ctrl, grip),
+        "step": lambda f=fs.make_cuda_step(*m): f(X, acts[0]),
+        "rollout": lambda f=fs.make_cuda_rollout(*m, horizon=H): f(X, acts),
     }
     out = {}
     with torch.no_grad():
-        for name, (kern, plain) in pairs.items():
-            # plain, kernel, kernel, plain; the mean of each pair
-            p1 = plain_first[name]
+        for name, kern in kernels.items():
             k1 = time_ms(kern, 3)
             k2 = time_ms(kern, 3)
-            p2 = time_ms(plain, 1, warm=False)
-            out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            out[name] = ((k1 + k2) / 2, plain_first[name])
             say(f"[timing] {name} B={B}{' H=2' if name == 'rollout' else ''}"
                 f": kernel {out[name][0]:.3f} ms ({k1:.3f}, {k2:.3f}), "
-                f"plain {out[name][1]:.1f} ms ({p1:.1f}, {p2:.1f})")
+                f"plain {out[name][1]:.1f} ms")
     record("timing_ms", {k: {"kernel": v[0], "plain": v[1]}
                          for k, v in out.items()})
 
@@ -825,7 +952,7 @@ def preview_phase(dev):
                            high)[:, 0].permute(1, 2, 0).contiguous()
         with torch.no_grad():
             kr, kag = fs.make_cuda_rollout(*m, **kw)(X, acts)
-            pr, pag = fs.make_reference_rollout(*m, **kw)(X, acts)
+            pr, pag = plain_rollout(*m, **kw)(X, acts)
         torch.cuda.synchronize()
         tag = (f"preview {env_id} H=2 B={B} ik {kw['ik_iters']} solve "
                f"{kw['solve_iters']} with_ee")
@@ -844,7 +971,7 @@ def preview_phase(dev):
                         dtype=torch.float32, device=dev)
     with torch.no_grad():
         kr, _ = fs.make_cuda_rollout(*m, **kw)(X, acts)
-        ref = fs.make_reference_rollout(*m, **kw)
+        ref = plain_rollout(*m, **kw)
         p32, _ = ref(X, acts)
         p64, _ = ref(X.double(), acts.double())
     torch.cuda.synchronize()
@@ -897,7 +1024,7 @@ def mpc_twin_phase(dev):
     plans = mpc.init_batched_plan(m, cfg, 2, st)
     params = {"reach": torch.tensor([0.5, 1.0], device=dev)}
     out = {}
-    with torch.no_grad():
+    with torch.no_grad(), plain_graphs():
         for backend in ("cuda", "reference"):
             step = mpc.make_batched_fused_mpc_step(
                 m, cfg, 2, backend=backend, with_ee=True,
@@ -1001,19 +1128,14 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     cfg, tree = m.cfg, m.tree
     step_k = fs.make_cuda_step(*m, **kw)
-    step_p = fs.make_reference_step(*m, **kw)
+    step_p = plain_step(*m, **kw)
     pos_rows = position_rows(cfg, tree, parts[0][1].device)
     H = parts[0][2].shape[0]
     Bs = [X.shape[1] for _, X, _, _ in parts]
     ag_of = [fs.make_lane_ag(cfg, tree, m.arm, ee) for *_, ee in parts]
     worst = [dict(flips=0, against=0, ags=0.0, fields={}) for _ in parts]
     bad, outside, jumps = [], [], []
-    n_plain = H if plain_steps is None else min(H, plain_steps)
     with torch.no_grad():
-        # a captured graph pays for itself from ~4 plain steps on
-        step_g = step_p if n_plain < 4 else replayed(
-            step_p, torch.cat([X for _, X, _, _ in parts], 1),
-            torch.cat([a[0] for _, _, a, _ in parts], 1))
         runs = [fs.make_cuda_rollout(*m, H, with_ee=ee, **kw)(X, a)
                 for _, X, a, ee in parts]
         Xk = [X for _, X, _, _ in parts]
@@ -1025,7 +1147,7 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
                     worst[j]["ags"] = max(worst[j]["ags"], float(
                         (runs[j][1][h] - ag_of[j](Xk[j])).abs().max()))
                 continue
-            Y = torch.split(step_g(torch.cat(Xin, 1), torch.cat(
+            Y = torch.split(step_p(torch.cat(Xin, 1), torch.cat(
                 [a[h] for _, _, a, _ in parts], 1)), Bs, 1)
             flagged = []
             for j, (tag, _, a, _) in enumerate(parts):
@@ -1056,7 +1178,7 @@ def preview_horizon_check(m, kw, parts, plain_steps=None):
             if sum(len(f) for f in flagged):
                 cat = lambda xs: torch.cat(  # noqa: E731
                     [x[:, f] for x, f in zip(xs, flagged)], 1)
-                Y64 = step_p(cat(Xin).double(), cat(
+                Y64 = padded(step_p, cat(Xin).double(), cat(
                     [a[h] for _, _, a, _ in parts]).double())
                 e_k = env_error(cat(Xk), Y64, pos_rows)
                 e_p = env_error(cat(Y), Y64, pos_rows)
@@ -1149,7 +1271,7 @@ def jump_witness(step_p, x, a, xk, y, pos_rows):
     noise = 1 + JUMP_NOISE * torch.randn(
         (x.shape[0], n * k), generator=g, device=x.device,
         dtype=torch.float64)
-    y64 = step_p(x.double().repeat_interleave(k, 1) * noise,
+    y64 = padded(step_p, x.double().repeat_interleave(k, 1) * noise,
                  a.double().repeat_interleave(k, 1))
     xk, y = xk.double(), y.double()
     d = (xk - y) * pos_rows[:, None]
@@ -1191,7 +1313,7 @@ def mpc_shapes_phase(calls, plain_steps=None):
             if c["entry"] == "step":
                 with torch.no_grad():
                     k = fs.make_cuda_step(*c["m"], **kw)(X, a)
-                    p = fs.make_reference_step(*c["m"], **kw)(X, a)
+                    p = plain_step(*c["m"], **kw)(X, a)
                 torch.cuda.synchronize()
                 check_fields(tag, field_diffs(c["m"][0], c["m"][1], k, p))
                 say(f"[{tag}] {card()}")
@@ -1410,6 +1532,194 @@ def mpc_timing_phase(dev, p):
 
 
 # ---------------------------------------------------------------------------
+# the multi-device layer (parallel/mesh.py, the sharded paths, the launcher)
+# ---------------------------------------------------------------------------
+
+MULTI_SEED = 21
+PROFILED = 3                        # sharded replans under torch.profiler
+
+
+def _collective_ms(prof, n):
+    """Per replan, out of a torch.profiler run of n replans: (device ms of
+    the NCCL kernels, device ms of every kernel, host ms inside the c10d
+    collective calls, the part of it in the profiler's own
+    record_param_comms, {kernel or call: count} of those). The device
+    times are None where the trace holds no device time at all (CUPTI gave
+    nothing)."""
+    dev_all = dev_nccl = host = comms = 0.0
+    seen = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_all += t
+            if "nccl" in e.key.lower():
+                dev_nccl += t
+                seen[e.key] = e.count
+        elif e.key.startswith("c10d::"):
+            host += e.cpu_time_total
+            seen[e.key] = e.count
+        elif e.key == "record_param_comms":
+            comms += e.self_cpu_time_total
+    per = lambda t: t / 1e3 / n  # noqa: E731
+    if dev_all == 0.0:
+        return None, None, per(host), per(comms), seen
+    return per(dev_nccl), per(dev_all), per(host), per(comms), seen
+
+
+def multi_phase(dev, m, states, acts, kernel_out, p):
+    """[multi]: the sharded paths at world size 1 over NCCL on this card,
+    with the launch counts read around them: make_sharded_fused_rollout on
+    the main path's B=4096, H=40 inputs, the sharded fused planner by MPPI
+    (PLAN_CFG: pop=1024, H=10, 2 iterations) and by CEM, dryrun_multichip
+    (1), and the launcher (3 steps, a checkpoint, a relaunch that resumes
+    from it). After the counts are read: the sharded rollout must equal
+    the main path's rollout and each planner make_fused_planner on the
+    same generator, bit for bit (at world size 1 the all-reduces and the
+    gather are identities); times beside the unsharded ones, the sharded
+    replan's NCCL kernels and collective calls read from a torch.profiler
+    trace of it. At world size 1 NCCL only copies on the card: no number
+    here says what the collectives cost between cards, and several cards
+    are not exercised."""
+    import torch.distributed as dist
+    import launch_distributed_torch as ld
+    from roboticsplayroompybullet_torch.ops import fused_step as fs
+    from roboticsplayroompybullet_torch.parallel import fused as F
+    from roboticsplayroompybullet_torch.parallel import mesh as M
+    from roboticsplayroompybullet_torch.parallel.dryrun import dryrun_multichip
+    from roboticsplayroompybullet_torch.solver import mpc
+    from roboticsplayroompybullet_torch.utils import profiling
+    t0 = time.perf_counter()
+    mesh = M.make_mesh(device="cuda")
+    if dist.get_backend() != "nccl" or M.mesh_size(mesh) != 1:
+        raise AssertionError(f"[multi] {dist.get_backend()} world of "
+                             f"{M.mesh_size(mesh)}, wanted NCCL at 1")
+    H = acts.shape[1]
+    roll = F.make_sharded_fused_rollout(m, mesh, H)
+    cfgs = {"mppi": mpc.MPCConfig(**PLAN_CFG),
+            "cem": mpc.MPCConfig(**dict(PLAN_CFG, algorithm="cem"))}
+    planners = {a: mpc.make_sharded_fused_planner(m, c, mesh)
+                for a, c in cfgs.items()}
+    gen = lambda: torch.Generator(device=dev).manual_seed(MULTI_SEED)  # noqa
+    ck = os.path.join(ROOT, "build", "multi", "mpc_ckpt.npz")
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    argv = ["--ckpt", ck, "--ckpt-every", "3"]
+
+    fs.reset_launch_counts()
+    with torch.no_grad():
+        sh_states, sh_acts = M.shard_batch(states, mesh), M.shard_batch(acts,
+                                                                         mesh)
+        got = roll(sh_states, sh_acts)
+        plans = {a: pl(p["one"], p["plan0"], gen())
+                 for a, pl in planners.items()}
+        dry = dryrun_multichip(1)
+    out1 = ld.run_loop(ld.parse_args(argv + ["--steps", "3"]))
+    out2 = ld.run_loop(ld.parse_args(argv + ["--steps", "4"]))
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    say(f"[multi] launches {launches}")
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"[multi] the {k} kernel never launched")
+
+    fin, rew, ags = kernel_out
+    for name, a, b in ([("rewards", got[1], rew), ("ags", got[2], ags)]
+                       + [(k, getattr(got[0], k), v)
+                          for k, v in vars(fin).items()]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[multi] sharded rollout {name} differs "
+                                 "from the main path's")
+    with torch.no_grad():
+        for a, c in cfgs.items():
+            want = mpc.make_fused_planner(m, c)(p["one"], p["plan0"], gen())
+            (pl, best), (wpl, wbest) = plans[a], want
+            if not (torch.equal(pl.mean, wpl.mean)
+                    and torch.equal(pl.sigma, wpl.sigma)
+                    and torch.equal(best, wbest)):
+                raise AssertionError(f"[multi] sharded {a} planner differs "
+                                     "from make_fused_planner")
+    say(f"[multi] NCCL world 1: sharded rollout B={acts.shape[0]} H={H} == "
+        "main path bit for bit; sharded fused planner (pop="
+        f"{cfgs['mppi'].pop}, H={cfgs['mppi'].horizon}) == make_fused_planner"
+        " bit for bit, MPPI and CEM")
+    for k in ("cem_plan", "fused_plan"):
+        if not bool(torch.isfinite(dry[k].mean).all()):
+            raise AssertionError(f"[multi] dryrun {k} not finite")
+    if not (bool(torch.isfinite(dry["rewards"]).all())
+            and bool(torch.isfinite(dry["cem_best"]))
+            and bool(torch.isfinite(dry["fused_best"]))):
+        raise AssertionError("[multi] dryrun: non-finite rewards or bests")
+    if (out1["start"], out1["steps_run"], out2["start"],
+            out2["steps_run"]) != (0, 3, 3, 1):
+        raise AssertionError(f"[multi] launcher did not resume: {out1}, "
+                             f"{out2}")
+    say(f"[multi] dryrun_multichip(1) mesh {dry['mesh']}: finite; launcher "
+        f"{out1} then {out2}")
+
+    # times: the sharded paths beside the unsharded ones, in one chain
+    # order (plain, sharded, sharded, plain) so that both see the same host
+    with torch.no_grad():
+        ms_roll = time_ms(lambda: roll(sh_states, sh_acts), reps=3)
+        g = torch.Generator(device=dev).manual_seed(16)
+
+        def chain_of(planner):
+            def chain(n=1):
+                pl = p["plan0"]
+                for _ in range(n):
+                    pl, _ = planner(p["one"], pl, g)
+                return pl
+            return chain
+
+        sharded = chain_of(planners["mppi"])
+        plain = chain_of(mpc.make_fused_planner(m, cfgs["mppi"]))
+        runs = {"plain": [], "sharded": []}
+        for name in ("plain", "sharded", "sharded", "plain"):
+            runs[name].append(_chain_ms(sharded if name == "sharded"
+                                        else plain, CHAIN))
+        replan, replan_host = (float(np.mean(x)) for x in
+                               zip(*runs["sharded"]))
+        unsh, unsh_host = (float(np.mean(x)) for x in zip(*runs["plain"]))
+        try:
+            with profiling.trace(os.path.join(ROOT, "build", "multi",
+                                              "trace")) as prof:
+                sharded(PROFILED)
+                torch.cuda.synchronize()
+            nccl_ms, kern_ms, coll_host, comms_ms, seen = _collective_ms(
+                prof, PROFILED)
+        except RuntimeError as e:            # the profiler, not the path
+            say(f"[multi] torch.profiler failed ({e}): not measured")
+            nccl_ms = kern_ms = coll_host = comms_ms = seen = None
+    main_ms = RESULTS["main_path"]["ms"]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa
+    say(f"[multi] sharded fused rollout B={acts.shape[0]} H={H}: "
+        f"{ms_roll:.3f} ms per call (main path {main_ms:.3f} ms); {card()}")
+    say(f"[multi] replan pop={cfgs['mppi'].pop} H={cfgs['mppi'].horizon} "
+        f"iters={cfgs['mppi'].iters} mppi, chains of {CHAIN} (plain, "
+        f"sharded, sharded, plain): sharded {replan:.3f} ms (host enqueue "
+        f"{replan_host:.3f} ms), make_fused_planner {unsh:.3f} ms (host "
+        f"{unsh_host:.3f} ms), difference {replan - unsh:.3f} ms; {card()}")
+    say(f"[multi] torch.profiler, {PROFILED} sharded replans: per replan "
+        f"NCCL kernels {fmt(nccl_ms)} of {fmt(kern_ms)} device time in all "
+        f"kernels, host inside c10d collectives {fmt(coll_host)} ({seen} "
+        f"in all; the profiler's record_param_comms {fmt(comms_ms)} of it)."
+        " World size 1: NCCL copies on one card, nothing crosses between "
+        "cards")
+    dist.destroy_process_group()
+    secs = time.perf_counter() - t0
+    record("multi", {"launches": launches, "rollout_ms": ms_roll,
+                     "main_path_ms": main_ms, "replan_ms": replan,
+                     "replan_host_ms": replan_host, "unsharded_replan_ms": unsh,
+                     "unsharded_replan_host_ms": unsh_host,
+                     "nccl_kernel_ms": nccl_ms, "kernel_ms": kern_ms,
+                     "collective_host_ms": coll_host,
+                     "record_param_comms_ms": comms_ms, "phase_s": secs})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the env layer (envs/core.py, envs/wrapper.py, parallel/rollout.py,
 # solver/mpc.py's plan / mpc_rollout)
 # ---------------------------------------------------------------------------
@@ -1504,8 +1814,8 @@ def env_golden_phase(dev):
             out = torch.nonzero(env_error(Xk, XJ, pos_rows) > 1).flatten()
             witness = []
             if len(out):
-                Y64 = fs.make_reference_step(*m)(X0[:, out].double(),
-                                                 acts[:, out].double())
+                Y64 = padded(plain_step(*m), X0[:, out].double(),
+                             acts[:, out].double())
                 ek = env_error(Xk[:, out], Y64, pos_rows)
                 ej = env_error(XJ[:, out], Y64, pos_rows)
                 witness = [(int(t) + 1, float(a), float(b))
@@ -1728,8 +2038,8 @@ def env_reset_phase(dev):
         if env_id == SETTLE_HELD:
             with torch.no_grad():
                 t1 = time.perf_counter()
-                Yp = fs.make_reference_sim(
-                    *m, n_substeps=core.SETTLE_SUBSTEPS)(X, ctrl, grip)
+                Yp = plain_sim(*m, n_substeps=core.SETTLE_SUBSTEPS)(
+                    X, ctrl, grip)
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t1
             pos_rows = position_rows(m.cfg, m.tree, dev)
@@ -1742,8 +2052,8 @@ def env_reset_phase(dev):
             if flips <= MAX_FLIPS:      # nothing to witness
                 f = f[:0]
             with torch.no_grad():
-                Y64 = fs.make_reference_sim(
-                    *m, n_substeps=core.SETTLE_SUBSTEPS)(
+                Y64 = padded(plain_sim(
+                    *m, n_substeps=core.SETTLE_SUBSTEPS),
                     X[:, f].double(), ctrl[:, f].double(),
                     grip[f].double()) if len(f) else None
             ek = env_error(Xk[:, f], Y64, pos_rows) if len(f) else []
@@ -1837,7 +2147,7 @@ def env_step_phase(dev):
     a0 = acts[0].T.contiguous()
     with torch.no_grad():
         Xk, Ck = core._stepper(m)(X, a0)
-        Xp, Cp = fs.make_reference_step(*m, with_ctrl=True)(X, a0)
+        Xp, Cp = plain_step(*m, with_ctrl=True)(X, a0)
     torch.cuda.synchronize()
     err = check_fields(f"env step B={ENV_B} kernel vs plain",
                        field_diffs(m.cfg, m.tree, Xk, Xp))
@@ -2165,7 +2475,7 @@ def lfp_phase(dev):
     X, a = first[0]["inputs"]
     with torch.no_grad():
         Xk = fs.make_cuda_step(*m)(X, a)
-        Xp = fs.make_reference_step(*m)(X, a)
+        Xp = plain_step(*m)(X, a)
     torch.cuda.synchronize()
     check_fields(f"lfp collect step kernel B={LFP_B} vs plain",
                  field_diffs(m.cfg, m.tree, Xk, Xp))
@@ -2508,21 +2818,34 @@ def main():
 
     dev = torch.device("cuda", 0)
     torch.manual_seed(0)
-    build_phase()
+    secs = record("phase_s", {})
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        free_graphs()
+        secs[name] = time.perf_counter() - t0
+        say(f"[{name}] phase took {secs[name]:.1f} s")
+        return out
+
+    run("build", build_phase)
     m = core.build_model(CATALOG[FLAGSHIP])
-    errs, twin_inputs, plain_first = twin_phase(m, dev)
-    jax_parity_phase(dev)
+    errs, twin_inputs, plain_first = run("twin", twin_phase, m, dev)
+    run("jax parity", jax_parity_phase, dev)
     states, acts = main_path_inputs(m, dev)
-    launches, kernel_out = main_path_phase(m, dev, states, acts)
-    horizon_twin_phase(m, dev, states, acts, kernel_out)
-    times = timing_phase(m, dev, twin_inputs, plain_first)
-    preview_phase(dev)
-    mpc_twin_phase(dev)
+    launches, kernel_out = run("main path", main_path_phase, m, dev, states,
+                               acts)
+    run("horizon twin", horizon_twin_phase, m, dev, states, acts, kernel_out)
+    times = run("timing", timing_phase, m, dev, twin_inputs, plain_first)
+    run("preview", preview_phase, dev)
+    run("mpc twin", mpc_twin_phase, dev)
     p = mpc_path_inputs(dev)
-    mpc_launches, mpc_calls = mpc_path_phase(dev, p)
-    mpc_shapes_phase(mpc_calls)
-    mpc_timing_phase(dev, p)
-    env_launches = {}
+    mpc_launches, mpc_calls = run("mpc path", mpc_path_phase, dev, p)
+    run("mpc shapes", mpc_shapes_phase, mpc_calls)
+    run("mpc timing", mpc_timing_phase, dev, p)
+    multi_launches = run("multi", multi_phase, dev, m, states, acts,
+                         kernel_out, p)
+    env_launches = {"multi": multi_launches}
     for name, phase in (("env step", env_step_phase),
                         ("env reset", env_reset_phase),
                         ("mpc plan loop", plan_loop_phase),
@@ -2530,9 +2853,9 @@ def main():
                         ("eval", eval_phase),
                         ("lfp", lfp_phase),
                         ("ilqr", ilqr_phase)):
-        t0 = time.perf_counter()
-        env_launches[name] = phase(dev)
-        say(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+        env_launches[name] = run(name, phase, dev)
+    say(f"[phases] {sum(secs.values()):.1f} s in all: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
 
     # the bound of each kernel at the shape it was timed at (B=4096, the
     # rollout at H=2); no single PyTorch call computes the fused step

@@ -5,7 +5,8 @@ The rollout stays in the packed layout X (NF, B) for the whole horizon:
 per-step achieved goals are sliced straight out of the packed rows and
 EnvState is unpacked once at the end. On CUDA tensors the physics runs in
 the hand-written kernel (ops/fused_step.py::make_cuda_*); on CPU tensors
-in the plain PyTorch lane twin (make_reference_*).
+in the plain PyTorch lane twin (make_reference_*). The sharded rollout
+runs the same launch on each rank's block of the batch (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from ..envs.core import EnvModel
 from ..envs.rewards import compute_reward
 from ..envs.state import EnvState
 from ..ops import fused_step as fs
+from .mesh import on_mesh
 
 
 def _ag_row_gather(m: EnvModel, with_ee: bool = False):
@@ -157,3 +159,15 @@ def make_fused_rollout_whole(m: EnvModel, horizon: int, ik_iters=None,
         return final, rs, ags
 
     return rollout
+
+
+def make_sharded_fused_rollout(m: EnvModel, mesh, horizon: int,
+                               ik_iters=None, solve_iters: int = 8,
+                               n_substeps=None):
+    """make_fused_rollout_whole on this rank's shard of the batch
+    (shard_batch): one `rollout` launch a rank, no collective (envs are
+    independent). The JAX package's `interpret` and `block_envs` are the
+    TPU's; the kernel masks the tail, so any shard width runs."""
+    return on_mesh(mesh, make_fused_rollout_whole(
+        m, horizon, ik_iters=ik_iters, solve_iters=solve_iters,
+        n_substeps=n_substeps))

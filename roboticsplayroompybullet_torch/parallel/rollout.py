@@ -1,23 +1,27 @@
-"""Batched env primitives and rollouts (port of the single-device part of
-roboticsplayroompybullet_tpu/parallel/rollout.py; the sharded variants come
-with the multi-device slice).
+"""Batched and sharded env primitives and rollouts (port of
+roboticsplayroompybullet_tpu/parallel/rollout.py).
 
 The JAX package vmaps its one-env functions over a batch; here the env
 functions of envs/core.py are batched already, so these are thin. A
 rollout runs the whole horizon in one launch of the `rollout` kernel at
 the env step's fidelity on CUDA tensors (the plain lane twin on CPU
-tensors), and nothing in it reads the device back.
+tensors), and nothing in it reads the device back. The sharded variants
+run the same calls on each rank's block of the batch (parallel/mesh.py):
+envs are independent, so no collective runs until `success_rate`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..envs import core
 from ..envs.core import EnvModel
 from ..envs.state import EnvState
 from . import fused
+from .mesh import check_device, mesh_group, on_mesh
 
 
 def batched_reset(m: EnvModel, gen: torch.Generator, batch: int,
@@ -50,6 +54,30 @@ def rollout(m: EnvModel, state: EnvState, actions: torch.Tensor):
     return final, rs[0], ags[0]
 
 
-def success_rate(rewards: torch.Tensor) -> torch.Tensor:
-    """Success fraction of (final-step) rewards."""
-    return torch.where(rewards >= 0.0, 1.0, 0.0).mean()
+def make_sharded_rollout(m: EnvModel, mesh: DeviceMesh):
+    """batched_rollout on this rank's shard of the batch (shard_batch):
+    (states, actions) → (final states, rewards, ags), each this rank's
+    rows of the global result."""
+    return on_mesh(mesh, lambda states, actions:
+                   batched_rollout(m, states, actions))
+
+
+def make_sharded_step(m: EnvModel, mesh: DeviceMesh):
+    """batched_step on this rank's shard: (states, actions) → (states',
+    obs, rewards, info), this rank's rows."""
+    return on_mesh(mesh, lambda states, actions:
+                   batched_step(m, states, actions))
+
+
+def success_rate(rewards: torch.Tensor,
+                 mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Success fraction of (final-step) rewards; with a mesh, of the
+    global batch whose shard `rewards` is (the successes and the envs
+    summed over the mesh), as JAX's mean over a sharded array is."""
+    ok = torch.where(rewards >= 0.0, 1.0, 0.0)
+    if mesh is None:
+        return ok.mean()
+    check_device(mesh, rewards)
+    counts = torch.stack([ok.sum(), ok.new_tensor(float(ok.numel()))])
+    dist.all_reduce(counts, group=mesh_group(mesh))
+    return counts[0] / counts[1]

@@ -18,6 +18,17 @@ tensors raises. Randomness comes from a torch.Generator on the tensors'
 device; the Gaussian draw (`_normals`) is kept apart from the AR(1)/clip
 transform (`_sample_from`) so that tests can feed the transform the normals
 jax.random draws. Nothing inside a replan reads a value back to the host.
+
+The sharded planners (`make_sharded_fused_planner`, `make_sharded_planner`)
+split the population over a mesh (parallel/mesh.py): state and plan are
+the same on every rank, each rank scores its pop / mesh_size candidates,
+and the MPPI/CEM statistics reduce over the mesh's process group, two
+collectives an iteration: MPPI's best cost a MIN all-reduce, CEM's costs
+all-gathered for the elite threshold and the best, then one SUM
+all-reduce of the packed weight sums. Only score moments cross between
+devices. Every rank draws the global
+population's normals from the same generator and keeps its own rows, so
+the generators advance alike.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..envs import core
 from ..envs.core import EnvModel
@@ -34,6 +46,7 @@ from ..envs.state import EnvState
 from ..ops import fused_step as fs
 from ..ops import spatial as sp
 from ..parallel import fused as _fused
+from ..parallel.mesh import mesh_group, mesh_rank, mesh_size, on_mesh
 from .cost import CostWeights, trajectory_cost
 
 
@@ -156,31 +169,68 @@ def _weighted(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (w[..., None, None] * x).sum(-3)
 
 
+def _all_min(x: torch.Tensor, group) -> torch.Tensor:
+    """x, or its elementwise min over the group."""
+    if group is not None:
+        dist.all_reduce(x, dist.ReduceOp.MIN, group=group)
+    return x
+
+
+def _all_sum(*xs: torch.Tensor, group):
+    """xs, or each summed over the group: one all-reduce of xs packed
+    into one buffer."""
+    if group is None:
+        return xs
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    dist.all_reduce(flat, group=group)
+    return tuple(y.view_as(x) for x, y in
+                 zip(xs, flat.split([x.numel() for x in xs])))
+
+
+def _all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """x (..., n) of every rank of the group, concatenated in rank order
+    along the last axis → (..., world · n)."""
+    if group is None:
+        return x
+    first = x.movedim(-1, 0).contiguous()
+    out = first.new_empty((dist.get_world_size(group) * first.shape[0],)
+                          + tuple(first.shape[1:]))
+    dist.all_gather_into_tensor(out, first, group=group)
+    return out.movedim(0, -1)
+
+
 def _mppi_update(plan: PlanState, cfg: MPCConfig, actions: torch.Tensor,
-                 costs: torch.Tensor) -> PlanState:
+                 costs: torch.Tensor, group=None):
     """Softmax-weighted mean over all samples; actions (..., n, H, A),
-    costs (..., n)."""
-    best = costs.amin(-1, keepdim=True)
+    costs (..., n) → (plan, best cost (...,)). With a process group, the
+    samples are this rank's share: the best cost is a MIN and the weight
+    sums one SUM over it."""
+    best = _all_min(costs.amin(-1, keepdim=True), group)
     w = torch.exp(-(costs - best) / cfg.temperature)
-    wsum = w.sum(-1)
-    mean = _weighted(w, actions) / torch.clamp_min(wsum, 1e-9)[..., None,
-                                                               None]
-    return PlanState(mean=mean, sigma=plan.sigma)
+    wsum, wact = _all_sum(w.sum(-1), _weighted(w, actions), group=group)
+    mean = wact / torch.clamp_min(wsum, 1e-9)[..., None, None]
+    return PlanState(mean=mean, sigma=plan.sigma), best[..., 0]
 
 
 def _cem_update(plan: PlanState, cfg: MPCConfig, actions: torch.Tensor,
-                costs: torch.Tensor) -> PlanState:
+                costs: torch.Tensor, group=None):
     """Moments of the elite: every sample whose cost is at most the k-th
-    smallest (ties all enter), k = pop · elite_frac."""
+    smallest (ties all enter), k = pop · elite_frac → (plan, best cost
+    (...,)). With a process group, the k-th smallest and the best are
+    taken over every rank's costs (all-gathered) and the moments summed
+    over it (one SUM)."""
     k = max(1, int(cfg.pop * cfg.elite_frac))
-    thresh = torch.kthvalue(costs, k, dim=-1, keepdim=True).values
+    every = _all_gather_last(costs, group)
+    thresh = torch.kthvalue(every, k, dim=-1, keepdim=True).values
     w = (costs <= thresh).to(torch.float32)
-    wsum = torch.clamp_min(w.sum(-1), 1.0)[..., None, None]
-    mean = _weighted(w, actions) / wsum
-    var = torch.clamp_min(_weighted(w, torch.square(actions)) / wsum
-                          - torch.square(mean), 0.0)
+    wsum, wact, wsq = _all_sum(w.sum(-1), _weighted(w, actions),
+                               _weighted(w, torch.square(actions)),
+                               group=group)
+    wsum = torch.clamp_min(wsum, 1.0)[..., None, None]
+    mean = wact / wsum
+    var = torch.clamp_min(wsq / wsum - torch.square(mean), 0.0)
     sigma = torch.clamp_min(torch.sqrt(var), cfg.sigma_min)
-    return PlanState(mean=mean, sigma=sigma)
+    return PlanState(mean=mean, sigma=sigma), every.amin(-1)
 
 
 def _update_fn(cfg: MPCConfig):
@@ -202,19 +252,38 @@ def _score(m: EnvModel, cfg: MPCConfig, state: EnvState,
                            cfg.weights)
 
 
-def _plan_iters(m: EnvModel, cfg: MPCConfig, state: EnvState,
-                plan_state: PlanState, gen: torch.Generator):
-    """cfg.iters refinements of plan_state (H, A) on cfg.pop candidates →
-    (plan, best cost of the last iteration)."""
-    hi = _bounds(m, state.q)
+def _refine(cfg: MPCConfig, plan_state: PlanState, gen: torch.Generator,
+            hi: torch.Tensor, score, rows=slice(None), group=None):
+    """cfg.iters refinements of plan_state (H, A) → (plan, best cost of
+    the last iteration). Each iteration draws the normals of all cfg.pop
+    candidates from `gen` and scores the candidates `rows` of them
+    (score: (n, H, A) → (n,)); with a process group, `rows` is this
+    rank's share and the statistics reduce over the group."""
     update = _update_fn(cfg)
     pl, best = plan_state, None
     for _ in range(cfg.iters):
-        acts = _sample(gen, pl, cfg, cfg.pop, hi)
-        costs = _score(m, cfg, state, acts)
-        pl = update(pl, cfg, acts, costs)
-        best = costs.amin()
+        noise = _normals(gen, (cfg.pop,) + tuple(pl.mean.shape),
+                         pl.mean.device)[rows]
+        acts = _sample_from(pl, cfg, noise, hi)
+        pl, best = update(pl, cfg, acts, score(acts), group)
     return pl, best
+
+
+def _one_env(state: EnvState) -> None:
+    if state.q.shape[0] != 1:
+        raise ValueError(f"a planner takes one env, got {state.q.shape[0]}")
+
+
+def _plan_fn(m: EnvModel, cfg: MPCConfig, rows=slice(None), group=None):
+    """plan_fn(state, plan_state, gen) scoring the candidates `rows` at the
+    env step's fidelity (`_score`)."""
+    def plan_fn(state: EnvState, plan_state: PlanState,
+                gen: torch.Generator):
+        _one_env(state)
+        return _refine(cfg, plan_state, gen, _bounds(m, state.q),
+                       lambda acts: _score(m, cfg, state, acts), rows, group)
+
+    return plan_fn
 
 
 def plan(m: EnvModel, cfg: MPCConfig, state: EnvState,
@@ -222,9 +291,7 @@ def plan(m: EnvModel, cfg: MPCConfig, state: EnvState,
     """Single-device replan of the one env of `state` from plan_state,
     scored at the env step's fidelity. Returns (new plan, best rollout
     cost)."""
-    if state.q.shape[0] != 1:
-        raise ValueError(f"plan takes one env, got {state.q.shape[0]}")
-    return _plan_iters(m, cfg, state, plan_state, gen)
+    return _plan_fn(m, cfg)(state, plan_state, gen)
 
 
 def mpc_rollout(m: EnvModel, cfg: MPCConfig, state: EnvState,
@@ -264,32 +331,67 @@ def _bounds(m: EnvModel, like: torch.Tensor) -> torch.Tensor:
     return fs._const(np.asarray(m.cfg.action_high, np.float32), like[0, 0])
 
 
+def _fused_plan_fn(m: EnvModel, cfg: MPCConfig, roll, n: int,
+                   rows=slice(None), group=None):
+    """plan_fn(state, plan_state, gen) scoring n candidates per iteration
+    through the preview rollout `roll` (one launch at B = n)."""
+    def plan_fn(state: EnvState, plan_state: PlanState,
+                gen: torch.Generator):
+        _one_env(state)
+        X = fs.pack_state(m.cfg, m.tree, state).repeat(1, n)
+
+        def score(acts):                                    # (n, H, A)
+            _, ags = roll(X, acts.permute(1, 2, 0).contiguous())
+            return trajectory_cost(m.cfg, ags.permute(2, 0, 1), state.goal,
+                                   acts, cfg.weights)
+
+        return _refine(cfg, plan_state, gen, _bounds(m, X), score, rows,
+                       group)
+
+    return plan_fn
+
+
 def make_fused_planner(m: EnvModel, cfg: MPCConfig, backend: str = "auto"):
     """Single-env replanner scoring its candidates through the fused
     rollout. The population is the kernel batch (any size: the kernel
     masks the tail). Returns plan_fn(state, plan_state, gen) → (plan,
     best cost of the last iteration), with state an EnvState of one env,
     plan_state (H, A) and gen a torch.Generator on the state's device."""
-    roll = _preview(m, cfg, backend)
-    update = _update_fn(cfg)
+    return _fused_plan_fn(m, cfg, _preview(m, cfg, backend), cfg.pop)
 
-    def plan_fn(state: EnvState, plan_state: PlanState,
-                gen: torch.Generator):
-        if state.q.shape[0] != 1:
-            raise ValueError(f"plan_fn takes one env, got {state.q.shape[0]}")
-        X = fs.pack_state(m.cfg, m.tree, state).repeat(1, cfg.pop)
-        hi = _bounds(m, X)
-        pl, best = plan_state, None
-        for _ in range(cfg.iters):
-            acts = _sample(gen, pl, cfg, cfg.pop, hi)       # (pop, H, A)
-            _, ags = roll(X, acts.permute(1, 2, 0).contiguous())
-            costs = trajectory_cost(m.cfg, ags.permute(2, 0, 1), state.goal,
-                                    acts, cfg.weights)      # (pop,)
-            pl = update(pl, cfg, acts, costs)
-            best = costs.amin()
-        return pl, best
 
-    return plan_fn
+def _population_shard(cfg: MPCConfig, mesh):
+    """(candidates a rank, this rank's rows of the population, the mesh's
+    process group)."""
+    n_dev = mesh_size(mesh)
+    if cfg.pop % n_dev:
+        raise ValueError(f"pop {cfg.pop} does not split over {n_dev} devices")
+    n_local, idx = cfg.pop // n_dev, mesh_rank(mesh)
+    if idx is None:
+        raise ValueError("this rank is not on the mesh")
+    return n_local, slice(idx * n_local, (idx + 1) * n_local), mesh_group(mesh)
+
+
+def make_sharded_fused_planner(m: EnvModel, cfg: MPCConfig, mesh,
+                               n_substeps: Optional[int] = None):
+    """make_fused_planner with the population split over the mesh: each
+    rank scores pop / mesh_size candidates through one preview `rollout`
+    launch per iteration, its candidate 0 the unperturbed mean, and the
+    MPPI/CEM statistics reduce over the mesh. State, plan and generator
+    are the same on every rank, and so are the plan and best cost it
+    returns. Returns plan_fn(state, plan_state, gen)."""
+    n_local, rows, group = _population_shard(cfg, mesh)
+    roll = _preview(m, cfg, "auto", n_substeps=n_substeps)
+    return on_mesh(mesh, _fused_plan_fn(m, cfg, roll, n_local, rows, group))
+
+
+def make_sharded_planner(m: EnvModel, cfg: MPCConfig, mesh):
+    """`plan` with the population split over the mesh: each rank scores
+    its pop / mesh_size candidates at the env step's fidelity (`_score`)
+    and the statistics reduce over the mesh. Returns plan_fn(state,
+    plan_state, gen)."""
+    _, rows, group = _population_shard(cfg, mesh)
+    return on_mesh(mesh, _plan_fn(m, cfg, rows, group))
 
 
 def make_batched_fused_mpc_step(m: EnvModel, cfg: MPCConfig, n_envs: int,
@@ -337,7 +439,8 @@ def make_batched_fused_mpc_step(m: EnvModel, cfg: MPCConfig, n_envs: int,
             _, ags = roll(Xrep, acts.reshape(B, H, -1).permute(1, 2, 0)
                           .contiguous())                     # (H, agE, B)
             ags = ags.permute(2, 0, 1).reshape(n_envs, pop, H, -1)
-            plans = update(plans, cfg, acts, cost_fn(ags, goals, acts, cp))
+            plans, _ = update(plans, cfg, acts,
+                              cost_fn(ags, goals, acts, cp))
         a = plans.mean[:, 0]                                 # (n_envs, A)
         X2 = stepk(X, a.T.contiguous())
         states2 = fs.unpack_state(m.cfg, m.tree, X2, states)

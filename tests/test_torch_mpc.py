@@ -110,8 +110,9 @@ def test_updates_match_jax(algorithm):
     cfg = mpc.MPCConfig(pop=int(z["pop"]), elite_frac=float(z["elite_frac"]),
                         algorithm=algorithm)
     update = mpc._update_fn(cfg)
-    pl = update(mpc.PlanState(T(z["mean"]), T(z["sigma"])), cfg,
-                T(z["actions"]), T(z["costs"]))
+    pl, best = update(mpc.PlanState(T(z["mean"]), T(z["sigma"])), cfg,
+                      T(z["actions"]), T(z["costs"]))
+    np.testing.assert_array_equal(best.numpy(), z["costs"].min(-1))
     for f in ("mean", "sigma"):
         np.testing.assert_allclose(getattr(pl, f).numpy(),
                                    z[f"{algorithm}_{f}"], rtol=0, atol=1e-5,

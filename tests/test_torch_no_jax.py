@@ -31,14 +31,15 @@ def test_every_module_imports_without_jax():
                  "solver.cost", "solver.eval", "solver.ilqr",
                  "solver.gradient", "envs.obs",
                  "envs.core", "envs.wrapper", "envs.physics", "gym_registry",
-                 "parallel.rollout", "utils.spaces", "utils.render",
+                 "parallel.rollout", "parallel.mesh", "parallel.dryrun",
+                 "utils.spaces", "utils.render", "utils.profiling",
                  "learn.lfp", "learn.play_policy", "utils.episodelog",
                  "utils.checkpoint"):
         assert f"roboticsplayroompybullet_torch.{name}" in mods, name
     tools = sorted(f[:-3] for f in os.listdir(os.path.join(tp.ROOT, "tools"))
                    if f.endswith("_torch.py"))
-    assert {"collect_play_torch", "train_lfp_torch",
-            "eval_lfp_torch"} <= set(tools), tools
+    assert {"collect_play_torch", "train_lfp_torch", "eval_lfp_torch",
+            "launch_distributed_torch", "scaling_torch"} <= set(tools), tools
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

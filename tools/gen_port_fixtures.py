@@ -41,6 +41,12 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the multi-device fixtures (parallel_*) run JAX's sharded planners on a
+# 2-device CPU mesh; one device holds every other fixture's program
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS",
+                                                                ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=2")
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
 
@@ -85,7 +91,10 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/ops/kinematics.py",
      "roboticsplayroompybullet_tpu/envs/core.py",
      "roboticsplayroompybullet_tpu/envs/physics.py",
-     "roboticsplayroompybullet_tpu/utils/render.py"]
+     "roboticsplayroompybullet_tpu/utils/render.py",
+     "roboticsplayroompybullet_tpu/parallel/mesh.py",
+     "roboticsplayroompybullet_tpu/utils/checkpoint.py",
+     "tools/launch_distributed.py"]
     + [os.path.relpath(p, ROOT) for p in glob.glob(
         os.path.join(ROOT, "roboticsplayroompybullet_tpu/models/*.py"))])
 
@@ -1289,6 +1298,127 @@ def make_ilqr_refine():
           substeps=np.int32(3), **_batched(state))
 
 
+# ---------------------------------------------------------------------------
+# the multi-device layer (parallel/mesh.py, solver/mpc.py's sharded planners,
+# tools/launch_distributed.py)
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 2
+# make_sharded_fused_planner as tests/test_parallel.py and the dryrun call it
+PAR_FUSED = dict(pop=256, horizon=2, iters=2, n_substeps=2,
+                 preview_ik_iters=2, preview_solve_iters=4)
+# make_sharded_planner, scored by the oracle step at 2 substeps
+PAR_PLAN = dict(pop=4, horizon=2, iters=2, substeps=2)
+LAUNCH = dict(steps=1, pop=128, horizon=2, iters=1, seed=0)
+
+
+def _par_meshes() -> dict:
+    """JAX's two 2-device meshes: 1-D ("env",) and 2x1 ("dcn", "env")."""
+    from roboticsplayroompybullet_tpu import parallel as par
+    devs = jax.devices()[:N_SHARDS]
+    assert len(devs) == N_SHARDS, "needs 2 CPU devices (XLA_FLAGS)"
+    return {"env": par.make_mesh(n_devices=N_SHARDS, devices=devs),
+            "dcn_env": par.make_mesh(n_devices=N_SHARDS, n_hosts=N_SHARDS,
+                                     devices=devs)}
+
+
+def _shard_normals(key, pop: int, H: int, A: int, iters: int) -> np.ndarray:
+    """(iters, pop, H, A): iteration j's normals of every shard, shard i's
+    rows i·pop/N onwards, as each shard draws them (its key folded with
+    its linear mesh index, split into `iters` keys: mpc.py:279-288,
+    :106)."""
+    n = pop // N_SHARDS
+    keys = [jax.random.split(jax.random.fold_in(key, i), iters)
+            for i in range(N_SHARDS)]
+    return np.stack([np.concatenate([
+        np.asarray(jax.random.normal(keys[i][j], (n, H, A), jnp.float32))
+        for i in range(N_SHARDS)]) for j in range(iters)])
+
+
+def _reach_start() -> dict:
+    with np.load(os.path.join(OUT, "rollout_UR5Reach.npz")) as z:
+        return {f: z[f"in_{f}"][0] for f in STATE_FIELDS}
+
+
+def _par_planner_runs(make, m, cfg_kw, key, algos) -> dict:
+    """plan and best of make(m, MPCConfig, mesh) from init_plan, by each
+    of algos, on each mesh."""
+    sol, mpc = _mpc()
+    d, out = _reach_start(), {}
+    for mesh_name, mesh in _par_meshes().items():
+        for algo in algos:
+            cfg = mpc.MPCConfig(algorithm=algo, **cfg_kw)
+            pl, best = make(m, cfg, mesh)(_state_of(d), sol.init_plan(m, cfg),
+                                          key)
+            out.update({f"{mesh_name}_{algo}_mean": pl.mean,
+                        f"{mesh_name}_{algo}_sigma": pl.sigma,
+                        f"{mesh_name}_{algo}_best": best})
+    out.update({f"in_{k}": v for k, v in d.items()})
+    return out
+
+
+def make_parallel_fused():
+    """JAX's make_sharded_fused_planner (backend="reference", the plain
+    lane twin) on UR5Reach at PAR_FUSED's size, 128 candidates a shard,
+    from the first start state of rollout_UR5Reach; the shards' normals
+    are stored."""
+    sol, _ = _mpc()
+    m = core.build_model(CATALOG["UR5Reach-v0"])
+    kw = {k: v for k, v in PAR_FUSED.items() if k != "n_substeps"}
+    key = jax.random.PRNGKey(11)
+
+    def make(m, cfg, mesh):
+        return sol.make_sharded_fused_planner(
+            m, cfg, mesh, block_envs=PAR_FUSED["pop"] // N_SHARDS,
+            backend="reference", n_substeps=PAR_FUSED["n_substeps"])
+
+    out = _par_planner_runs(make, m, kw, key, ("mppi", "cem"))
+    _save("parallel_fused_UR5Reach", **out,
+          normals=_shard_normals(key, kw["pop"], kw["horizon"],
+                                 m.cfg.action_dim, kw["iters"]),
+          **{k: np.int32(v) for k, v in PAR_FUSED.items()})
+
+
+def make_parallel_plan():
+    """JAX's make_sharded_planner (each shard scoring through vmapped
+    core.step_physics_only) on UR5Reach at PAR_PLAN's size, by CEM (the
+    dryrun's algorithm; MPPI's reductions are the fused planner's), from
+    the first start state of rollout_UR5Reach; the shards' normals are
+    stored."""
+    sol, _ = _mpc()
+    m = core.build_model(dataclasses.replace(
+        CATALOG["UR5Reach-v0"], substeps=PAR_PLAN["substeps"]))
+    kw = {k: v for k, v in PAR_PLAN.items() if k != "substeps"}
+    key = jax.random.PRNGKey(12)
+    out = _par_planner_runs(sol.make_sharded_planner, m, kw, key, ("cem",))
+    _save("parallel_plan_UR5Reach", **out,
+          normals=_shard_normals(key, kw["pop"], kw["horizon"],
+                                 m.cfg.action_dim, kw["iters"]),
+          **{k: np.int32(v) for k, v in PAR_PLAN.items()})
+
+
+def make_launch_ckpt():
+    """The checkpoint tools/launch_distributed.py writes after LAUNCH's
+    one dryrun step on UR5Reach (one CPU device), byte for byte."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import launch_distributed as ld
+    path = os.path.join(ROOT, "build", "launch_ckpt_fixture.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    L = LAUNCH
+    ld.run_loop(ld.parse_args([
+        "--steps", str(L["steps"]), "--ckpt", path, "--ckpt-every", "1",
+        "--pop", str(L["pop"]), "--horizon", str(L["horizon"]),
+        "--iters", str(L["iters"]), "--devices", "1", "--block-envs",
+        str(L["pop"]), "--seed", str(L["seed"]), "--dryrun", "--env",
+        "UR5Reach-v0"]))
+    with open(path, "rb") as f:
+        raw = np.frombuffer(f.read(), np.uint8)
+    _save("launch_ckpt_UR5Reach", ckpt=raw,
+          **{k: np.int32(v) for k, v in L.items()})
+
+
 # the gradient solvers' jobs, on tests/test_ilqr.py's cases
 ILQR_JOBS = {"ilqr_di": make_ilqr_di, "ilqr_reach": make_ilqr_reach,
              "ilqr_pinch": make_ilqr_pinch, "ilqr_refine": make_ilqr_refine}
@@ -1305,7 +1435,10 @@ def jobs() -> dict:
            "mpc_plan_loop_UR5Reach": make_mpc_plan_loop,
            "proprio": make_proprio, "eval_data": make_eval_data,
            "eval_pick_acquire": make_eval_pick_acquire,
-           f"eval_family_{_key(FLAGSHIP)}": make_eval_family_batch}
+           f"eval_family_{_key(FLAGSHIP)}": make_eval_family_batch,
+           "parallel_fused_UR5Reach": make_parallel_fused,
+           "parallel_plan_UR5Reach": make_parallel_plan,
+           "launch_ckpt_UR5Reach": make_launch_ckpt}
     out.update(ILQR_JOBS)
     for e in CATALOG:
         out[f"golden_lane_{_key(e)}"] = (lambda e=e: make_golden_lane(e))
