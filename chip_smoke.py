@@ -42,11 +42,17 @@ runs batched_reset at B=4096 on the flagship and the 2-block pandaPlay
 attempt; one such launch is held to the plain twin) and the out-of-bounds
 re-place case at B=1024; `[env step]` steps BatchedEnv at B=4096 (one
 step held to the plain twin) and times it beside PlayEnv.step at B=1;
+`[render]` drives the camera path (utils/render.py, PlayEnv.render and
+obs["img"], the sub-goal ghosts, tools/teleop_bridge_torch.py) on the
+flagship at 200x200: reset, render, recorded steps (one step launch
+each), a sub-goal drawn and deleted, the human PNG, a bridge on the card;
+every frame held to the port's CPU render of the same state by the pixel
+rule, and the ms of a frame at B=1 and B=64;
 `[mpc plan loop]` runs mpc_rollout on UR5Reach (the planner scoring at the
 env step's fidelity) and holds its kernel launches at their own shapes.
 Then the task-competence eval (solver/eval.py): `[eval]` runs run_eval
 for the 12 families of tools/eval_mpc_torch.py at full width (4 envs x
-1024 candidates, H=10) on one batch of 10 steps, holds the first preview
+1024 candidates, H=10) on one batch of 5 steps, holds the first preview
 launch of each model new to the MPC path (UR5Reach, pandaPlayAbsRPY1Obj,
 pandaPick at B=4096) step by step and every model's executed step and
 pick's acquisition step per field, and times each model's eval control
@@ -80,8 +86,8 @@ graphs and the eager autograd they are held to take another ~2 minutes.
 
 The last two lines are one JSON object per kernel ({"kernels": [...]};
 `launches` adds the counts of the main path's, the MPC path's, the
-multi-device paths', the env paths', the eval's, the LfP chain's and the
-gradient solvers' runs,
+multi-device paths', the env paths', the camera path's, the eval's, the
+LfP chain's and the gradient solvers' runs,
 `launches_by_path` splits them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
@@ -93,6 +99,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -363,12 +370,13 @@ def time_ms(fn, reps, warm=True):
     return e0.elapsed_time(e1) / reps
 
 
-def twin_phase(m, dev):
+def twin_phase(m, dev, built):
     """Kernel vs plain PyTorch twin on the card, per field, at the main
     path's batch (B=4096; the rollout at H=2). Returns each kernel's max
     error, the inputs, and the device ms of each plain call (the plain
     time timing_phase reports); holds the plain twin replayed from CUDA
-    graphs equal to these eager calls."""
+    graphs equal to these eager calls. The plain calls come first, while
+    the kernel builds beside them; built() waits for the build."""
     from roboticsplayroompybullet_torch.ops import fused_step as fs
     cfg, tree = m.cfg, m.tree
     B = 4096
@@ -388,26 +396,38 @@ def twin_phase(m, dev):
         plain[name] = e0.elapsed_time(e1)
         return out
 
-    with torch.no_grad():
-        k = fs.make_cuda_sim(*m)(X, ctrl, grip)
-        p = timed("sim", lambda: fs.make_reference_sim(*m)(X, ctrl, grip))
-    torch.cuda.synchronize()
-    err = {"sim": check_fields(f"twin sim 12 substeps B={B}",
-                               field_diffs(cfg, tree, k, p))}
-
     rs = np.random.RandomState(2)
     H = 2
     acts = torch.tensor(rs.uniform(-0.25, 0.25, (H, cfg.action_dim, B)),
                         dtype=torch.float32, device=dev)
     with torch.no_grad():
+        p = timed("sim", lambda: fs.make_reference_sim(*m)(X, ctrl, grip))
+        ps = timed("step", lambda: fs.make_reference_step(*m)(X, acts[0]))
+        pr, pag = timed("rollout", lambda: fs.make_reference_rollout(
+            *m, horizon=H)(X, acts))
+        # the plain twin replayed from CUDA graphs, the later phases'
+        # oracle, is this eager one bit for bit
+        same = {"sim": torch.equal(plain_sim(*m)(X, ctrl, grip), p),
+                "step": torch.equal(plain_step(*m)(X, acts[0]), ps),
+                "rollout": all(map(torch.equal, plain_rollout(
+                    *m, horizon=H)(X, acts), (pr, pag)))}
+    say(f"[twin] the plain twin replayed from CUDA graphs == eager, bit "
+        f"for bit: {same}")
+    record("graphed_twin_equal", same)
+    if not all(same.values()):
+        raise AssertionError("the graphed plain twin is not the eager")
+
+    built()
+    with torch.no_grad():
+        k = fs.make_cuda_sim(*m)(X, ctrl, grip)
+        torch.cuda.synchronize()
+        err = {"sim": check_fields(f"twin sim 12 substeps B={B}",
+                                   field_diffs(cfg, tree, k, p))}
         step_k = fs.make_cuda_step(*m)
         ks = step_k(X, acts[0])
-        ps = timed("step", lambda: fs.make_reference_step(*m)(X, acts[0]))
         err["step"] = check_fields(f"twin step B={B}",
                                    field_diffs(cfg, tree, ks, ps))
         kr, kag = fs.make_cuda_rollout(*m, horizon=H)(X, acts)
-        pr, pag = timed("rollout", lambda: fs.make_reference_rollout(
-            *m, horizon=H)(X, acts))
         e = check_fields(f"twin rollout H=2 B={B}",
                          field_diffs(cfg, tree, kr, pr))
         dag = (kag - pag).abs()
@@ -418,17 +438,6 @@ def twin_phase(m, dev):
         if float(dag.max()) > POS_MAX:
             raise AssertionError("rollout kernel ags differ from the plain")
         err["rollout"] = max(e, float(dag.max()))
-        # the plain twin replayed from CUDA graphs, the later phases'
-        # oracle, is this eager one bit for bit
-        same = {"sim": torch.equal(plain_sim(*m)(X, ctrl, grip), p),
-                "step": torch.equal(plain_step(*m)(X, acts[0]), ps),
-                "rollout": all(map(torch.equal, plain_rollout(
-                    *m, horizon=H)(X, acts), (pr, pag)))}
-        say(f"[twin] the plain twin replayed from CUDA graphs == eager, bit "
-            f"for bit: {same}")
-        record("graphed_twin_equal", same)
-        if not all(same.values()):
-            raise AssertionError("the graphed plain twin is not the eager")
         # whole-horizon kernel == H applications of the step kernel
         Xs = X
         for h in range(H):
@@ -2212,6 +2221,169 @@ def env_step_phase(dev):
     return launches
 
 
+RENDER_STEPS = 5           # recorded PlayEnv steps before the sub-goal
+FRAME_B, FRAME_REPS = 64, 10
+
+
+def render_phase(dev):
+    """The camera path on the flagship at 200x200 (utils/render.py,
+    PlayEnv's camera half, tools/teleop_bridge_torch.py), with the launch
+    counts read around it: PlayEnv reset (its settle an fs_sim launch),
+    render("rgb_array"), RENDER_STEPS recorded steps (one fs_step each), a
+    full_positional_state sub-goal drawn (the ghost arm's IK on the card)
+    and deleted, render("human") writing a PNG on a recorded step, and a
+    Bridge on the card answering reset / step / sub_goal / close. Every
+    frame is held by the pixel rule (tests/_torch_port.py::pixel_rule) to
+    the port's render of the same state copied to the CPU, and obs["img"]
+    is the uint8 of the card's float frame. Then ms per frame at B=1 and
+    B=FRAME_B (CUDA events after a warm-up), and PlayEnv.step latency
+    without and with recording."""
+    import _torch_port as tp
+    import teleop_bridge_torch as tb
+    from roboticsplayroompybullet_torch import interop
+    from roboticsplayroompybullet_torch.envs import wrapper
+    from roboticsplayroompybullet_torch.utils import render as rnd
+    env = wrapper.make(FLAGSHIP, seed=27, device=dev)
+    m = env.model
+    rs = np.random.RandomState(27)
+    acts = rs.uniform(-0.25, 0.25, (RENDER_STEPS + 1, m.cfg.action_dim)
+                      ).astype(np.float32)
+    png = os.path.join(ROOT, "build", "render", "human.png")
+    os.makedirs(os.path.dirname(png), exist_ok=True)
+    held = []               # (tag, uint8 frame, state, ghosts) to check
+
+    def shot(tag, frame):
+        held.append((tag, frame, env.state, env._ghost_inputs()))
+        return frame
+
+    def drive():
+        obs = env.reset()
+        shot("reset", env.render("rgb_array"))
+        for t in range(RENDER_STEPS):
+            out = env.step(acts[t])
+            shot(f"step {t}", out[0]["img"])
+        sub = moved_sub_goal(obs["full_positional_state"])
+        env.visualise_sub_goal(sub, "full_positional_state")
+        shot("sub-goal", env.render("rgb_array"))
+        env.delete_sub_goal()
+        shot("deleted", env.render("rgb_array"))
+        env.human_render_path, env.human_render_every = png, 1
+        env.render("human")
+        out = env.step(acts[RENDER_STEPS])
+        return shot("human step", out[0]["img"]), sub
+
+    (last, sub), launches = counted(drive)
+    steps = RENDER_STEPS + 1
+    if launches["step"] != steps or launches["sim"] < 1:
+        raise AssertionError(f"render: launches {launches}, not one fs_step "
+                             f"a step ({steps}) and a settle")
+    b = tb.Bridge(FLAGSHIP, seed=28, device=dev)
+
+    def ask():
+        out = [b.handle({"cmd": "reset"}),
+               b.handle({"cmd": "step", "action": acts[0].tolist()})]
+        fps = b.handle({"cmd": "state"})["obs"]["full_positional_state"]
+        return out + [b.handle({"cmd": "sub_goal", "sub_goal":
+                                moved_sub_goal(fps).tolist(),
+                                "kind": "full_positional_state"}),
+                      b.handle({"cmd": "close"})]
+
+    answers, bridge_launches = counted(ask)
+    if not all(a["ok"] for a in answers) or not answers[-1].get("closed"):
+        raise AssertionError(f"render: the bridge answered {answers}")
+    if bridge_launches["step"] != 1 or bridge_launches["sim"] < 1:
+        raise AssertionError(f"render: bridge launches {bridge_launches}")
+    say(f"[render] launches {launches} (PlayEnv: reset, {steps} recorded "
+        f"steps), bridge {bridge_launches} (reset, step, sub_goal, close)")
+
+    worst = {}
+    for tag, frame, st, (g, gb) in held:
+        with torch.no_grad():
+            img = rnd.render_state(*m, st, ghosts=g, ghost_boxes=gb)[0]
+            cpu = lambda x: None if x is None else tuple(  # noqa: E731
+                a.cpu() for a in x)
+            ref = rnd.render_state(
+                *m, interop.state_from_numpy(interop.state_to_numpy(st),
+                                             "cpu"),
+                ghosts=cpu(g), ghost_boxes=cpu(gb))[0]
+        img = img.cpu().numpy()
+        ok, outliers = tp.pixel_rule(img, ref.numpy())
+        worst[tag] = outliers
+        if not ok:
+            raise AssertionError(f"render {tag}: card vs CPU frame off the "
+                                 f"pixel rule ({outliers} channel values)")
+        if frame.shape != (rnd.PIXELS, rnd.PIXELS, 3) or not np.array_equal(
+                frame, (img * 255).astype(np.uint8)):
+            raise AssertionError(f"render {tag}: the uint8 frame is not the "
+                                 "float frame's")
+    frames = {tag: frame for tag, frame, _, _ in held}
+    changed = float((frames["sub-goal"] != frames["step "
+                                                 f"{RENDER_STEPS - 1}"]
+                     ).any(-1).mean())
+    if changed < 0.01 or not np.array_equal(
+            frames["deleted"], frames[f"step {RENDER_STEPS - 1}"]):
+        raise AssertionError(f"render: the sub-goal changed {changed:.4f} "
+                             "of the pixels, or deleting it left a change")
+    want = os.path.join(os.path.dirname(png), "want.png")
+    rnd.write_png(want, last)
+    with open(png, "rb") as f, open(want, "rb") as g_:
+        if f.read() != g_.read():
+            raise AssertionError("render: the human PNG is not the frame")
+    say(f"[render] {len(held)} frames (reset, {RENDER_STEPS} recorded steps,"
+        f" sub-goal {100 * changed:.1f} % of the pixels changed, deleted, "
+        "human step) on the card vs the CPU render: pixel rule (|d| <= "
+        f"{tp.PIXEL_TOL} on >= {100 * tp.PIXEL_SHARE} % a channel) ok, "
+        f"outlying channel values {worst}; uint8 frames exact; human PNG ok")
+
+    # timing: a frame at B=1 (plain, with the sub-goal's ghosts) and B=64
+    with torch.no_grad():
+        st = env.state
+        ms1 = time_ms(lambda: rnd.render_state(*m, st), FRAME_REPS)
+        env.visualise_sub_goal(sub, "full_positional_state")
+        g, gb = env._ghost_inputs()
+        ms1g = time_ms(lambda: rnd.render_state(*m, st, ghosts=g,
+                                                ghost_boxes=gb), FRAME_REPS)
+        env.delete_sub_goal()
+        many = flagship_states(FRAME_B, dev, 29)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        msb = time_ms(lambda: rnd.render_state(*m, many), FRAME_REPS)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        lat = {}
+        for rec in (False, True):
+            if rec:
+                b.env.render("rgb_array")
+            out = b.env.step(acts[0])
+            if (out[0]["img"] is None) == rec:
+                raise AssertionError("render: obs['img'] not as recording")
+            t0 = time.perf_counter()
+            for a in acts:
+                b.env.step(a)
+            lat[rec] = (time.perf_counter() - t0) * 1e3 / len(acts)
+    say(f"[render] 200x200 frame: B=1 {ms1:.3f} ms ({ms1g:.3f} ms with the "
+        f"sub-goal's ghosts), B={FRAME_B} {msb:.3f} ms = {msb / FRAME_B:.3f} "
+        f"ms a frame, peak {peak:.1f} MiB; PlayEnv.step latency without "
+        f"recording {lat[False]:.3f} ms, with {lat[True]:.3f} ms (host "
+        f"clock); {card()}")
+    record("render", {"launches": launches, "bridge_launches":
+                      bridge_launches, "outliers": worst,
+                      "sub_goal_changed": changed, "frame_ms_b1": ms1,
+                      "frame_ms_b1_ghosts": ms1g,
+                      f"frame_ms_b{FRAME_B}": msb, "peak_mib": peak,
+                      "playenv_step_ms": lat[False],
+                      "playenv_step_recording_ms": lat[True]})
+    return {k: launches[k] + bridge_launches[k] for k in launches}
+
+
+def moved_sub_goal(fps):
+    """A flagship full_positional_state sub-goal: `fps` with the ee and
+    the block moved 6 and 5 cm."""
+    sub = np.array(fps, np.float32)
+    sub[:3] += np.array([0.06, -0.06, 0.06], np.float32)
+    sub[8:11] += np.array([0.05, 0.05, 0.0], np.float32)
+    return sub
+
+
 def plan_loop_phase(dev):
     """mpc_rollout (the single-device planner at the env step's fidelity,
     one rollout launch a refinement, one step launch a control step) on
@@ -2292,7 +2464,7 @@ def plan_loop_phase(dev):
 
 PANDA_PLAY = "pandaPlayAbsRPY1Obj-v0"
 PLAY_FAMILIES = ("block", "drawer", "door", "button", "dial")
-EVAL_STEPS = 10      # control steps a family (block 1.5x, pick's carry)
+EVAL_STEPS = 5       # control steps a family (block 1.5x, pick's carry)
 EVAL_TIMED = 5       # eval control steps timed a model, in one chain
 
 
@@ -2828,9 +3000,13 @@ def main():
         say(f"[{name}] phase took {secs[name]:.1f} s")
         return out
 
-    run("build", build_phase)
     m = core.build_model(CATALOG[FLAGSHIP])
-    errs, twin_inputs, plain_first = run("twin", twin_phase, m, dev)
+    # nvcc runs beside the twin phase's plain calls, which need no kernel;
+    # leaving the block waits for it, after a failure too
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(build_phase)
+        errs, twin_inputs, plain_first = run("build + twin", twin_phase, m,
+                                             dev, build.result)
     run("jax parity", jax_parity_phase, dev)
     states, acts = main_path_inputs(m, dev)
     launches, kernel_out = run("main path", main_path_phase, m, dev, states,
@@ -2847,6 +3023,7 @@ def main():
                          kernel_out, p)
     env_launches = {"multi": multi_launches}
     for name, phase in (("env step", env_step_phase),
+                        ("render", render_phase),
                         ("env reset", env_reset_phase),
                         ("mpc plan loop", plan_loop_phase),
                         ("env golden", env_golden_phase),

@@ -78,3 +78,22 @@ def zero_state(cfg, tree, B, device="cpu"):
         has_prev=torch.zeros(B, dtype=torch.bool, device=device),
         rng=torch.zeros((B, 2), dtype=torch.int64, device=device),
         t=torch.zeros(B, dtype=torch.int32, device=device))
+
+
+PIXEL_TOL = 1e-4      # per channel |Δ| of a float frame in [0, 1]
+PIXEL_SHARE = 0.995   # of the pixels, in every channel
+
+
+def pixel_rule(got, want):
+    """(ok, outliers) of a float frame (..., H, W, 3) against another: per
+    channel |Δ| ≤ PIXEL_TOL on at least PIXEL_SHARE of the pixels (a
+    grazing ray at a primitive's edge may flip under another float32
+    order), every value in [0, 1]. `outliers` counts the channel values
+    off by more than PIXEL_TOL."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    off = np.abs(got - want) > PIXEL_TOL
+    share = 1.0 - off.reshape(-1, 3).mean(0)
+    ok = bool((share >= PIXEL_SHARE).all() and got.min() >= 0.0
+              and got.max() <= 1.0)
+    return ok, int(off.sum())

@@ -310,8 +310,9 @@ def test_envs_live_on_the_card_unless_asked():
         obs = cpu.reset()
     assert cpu.state.q.device.type == "cpu"
     assert obs["observation"].shape == (2, 6)   # quat slot → Euler
-    with pytest.raises(NotImplementedError, match="1.14"):
-        wrapper.PlayEnv(cfg, device="cpu").render("rgb_array")
+    fresh = wrapper.PlayEnv(cfg, device="cpu")
+    assert fresh.render("rgb_array") is None    # recording on, no state yet
+    assert fresh.render("human").size == 0
     with pytest.raises(NotImplementedError):
         wrapper.PlayEnv(cfg, device="cpu").vr_activation()
 

@@ -34,12 +34,13 @@ def test_every_module_imports_without_jax():
                  "parallel.rollout", "parallel.mesh", "parallel.dryrun",
                  "utils.spaces", "utils.render", "utils.profiling",
                  "learn.lfp", "learn.play_policy", "utils.episodelog",
-                 "utils.checkpoint"):
+                 "utils.checkpoint", "utils.metrics"):
         assert f"roboticsplayroompybullet_torch.{name}" in mods, name
     tools = sorted(f[:-3] for f in os.listdir(os.path.join(tp.ROOT, "tools"))
                    if f.endswith("_torch.py"))
     assert {"collect_play_torch", "train_lfp_torch", "eval_lfp_torch",
-            "launch_distributed_torch", "scaling_torch"} <= set(tools), tools
+            "launch_distributed_torch", "scaling_torch", "interactive_torch",
+            "teleop_bridge_torch"} <= set(tools), tools
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -92,6 +92,8 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/envs/core.py",
      "roboticsplayroompybullet_tpu/envs/physics.py",
      "roboticsplayroompybullet_tpu/utils/render.py",
+     "roboticsplayroompybullet_tpu/envs/wrapper.py",
+     "roboticsplayroompybullet_tpu/utils/metrics.py",
      "roboticsplayroompybullet_tpu/parallel/mesh.py",
      "roboticsplayroompybullet_tpu/utils/checkpoint.py",
      "tools/launch_distributed.py"]
@@ -1424,8 +1426,161 @@ ILQR_JOBS = {"ilqr_di": make_ilqr_di, "ilqr_reach": make_ilqr_reach,
              "ilqr_pinch": make_ilqr_pinch, "ilqr_refine": make_ilqr_refine}
 
 
+RENDER_PX = 48          # tests/test_utils.py's render size
+
+
+def _batched_state(st: EnvState) -> dict:
+    """One env's state as B=1 arrays (batch leading, the port's layout)."""
+    return {k: v[None] for k, v in _state_dict(st).items()}
+
+
+def _ghost_arrays(prefix: str, spheres, boxes) -> dict:
+    names = ("pos", "rad", "col", "alp")
+    out = {f"{prefix}_g_{n}": np.asarray(a) for n, a in zip(names, spheres)}
+    names = ("pos", "quat", "half", "col", "alp")
+    out.update({f"{prefix}_gb_{n}": np.asarray(a)
+                for n, a in zip(names, boxes)})
+    return out
+
+
+def make_render_camera():
+    """The camera path (utils/render.py, the camera half of
+    envs/wrapper.py) and utils/metrics.py on small cases:
+      * render_state at 48 px of pandaPick's reset(PRNGKey(0)) state, plain,
+        with one ghost sphere and with that ghost at alpha 0
+        (tests/test_utils.py's cases), and its wrist_camera frame;
+      * UR5Reach's reset(PRNGKey(0)) state, goal [0, 0.1, 0.1], with and
+        without show_goal;
+      * the flagship (the reset dump's env 0) at 200 px, plain and with
+        PlayEnv._sub_goal_ghosts of a full_positional_state sub-goal (env
+        1's), and the ghosts of achieved_goal sub-goals on
+        pandaPlayAbsRPY1Obj (a unit and a zero block quaternion) and
+        pandaPick (a non-play env), and of a controllable_achieved_goal
+        sub-goal on UR5Reach;
+      * write_png's bytes for a uint8 and an out-of-range float image;
+      * play_element_bits on the flagship and pandaPlay, thresholds hit
+        exactly and missed by one float32 step."""
+    import tempfile
+    from roboticsplayroompybullet_tpu.envs import wrapper
+    from roboticsplayroompybullet_tpu.utils import metrics as met
+    from roboticsplayroompybullet_tpu.utils import render as rnd
+    out = {}
+
+    def render(m, st, **kw):
+        return np.asarray(rnd.render_state(m.cfg, m.tree, m.arm, m.scene,
+                                           st, **kw))
+
+    m = core.build_model(CATALOG["pandaPick-v0"])
+    st, _ = jax.jit(lambda k: core.reset(m, k))(jax.random.PRNGKey(0))
+    out.update({f"pick_{k}": v for k, v in _batched_state(st).items()})
+    ghosts = (np.array([[0.0, 0.1, 0.05]], np.float32),
+              np.array([0.08], np.float32),
+              np.array([[1.0, 0.0, 1.0]], np.float32),
+              np.array([0.5], np.float32))
+    out["pick_plain"] = render(m, st, pixels=RENDER_PX)
+    out["pick_ghost"] = render(m, st, pixels=RENDER_PX,
+                               ghosts=tuple(map(jnp.asarray, ghosts)))
+    ghosts0 = ghosts[:3] + (np.zeros(1, np.float32),)
+    out["pick_ghost0"] = render(m, st, pixels=RENDER_PX,
+                                ghosts=tuple(map(jnp.asarray, ghosts0)))
+    out.update({f"pick_ghost_{n}": a for n, a in zip(
+        ("pos", "rad", "col", "alp"), ghosts)})
+    out["pick_wrist"] = render(m, st, pixels=RENDER_PX,
+                               camera=rnd.wrist_camera(m.tree, m.arm, st))
+
+    env = wrapper.PlayEnv(CATALOG["pandaPick-v0"])
+    ag = np.array([0.05, 0.12, 0.02], np.float32)
+    env.visualise_sub_goal(ag, "achieved_goal")
+    out["pick_ag"] = ag
+    out.update(_ghost_arrays("pick_ag", *env._sub_goal_ghosts()))
+
+    cfg = CATALOG["UR5Reach-v0"]
+    m = core.build_model(cfg)
+    st, obs = jax.jit(lambda k: core.reset(m, k))(jax.random.PRNGKey(0))
+    st = st.replace(goal=jnp.array([0.0, 0.1, 0.1], jnp.float32))
+    out.update({f"reach_{k}": v for k, v in _batched_state(st).items()})
+    out["reach_goal_on"] = render(m, st, pixels=RENDER_PX)
+    m_off = core.build_model(dataclasses.replace(cfg, show_goal=False))
+    out["reach_goal_off"] = render(m_off, st, pixels=RENDER_PX)
+    env = wrapper.PlayEnv(cfg)
+    cag = np.asarray(obs["controllable_achieved_goal"]) + np.array(
+        [0.03, -0.02, 0.02, 0.0], np.float32)
+    env.visualise_sub_goal(cag, "controllable_achieved_goal")
+    out["reach_cag"] = cag
+    out.update(_ghost_arrays("reach_cag", *env._sub_goal_ghosts()))
+
+    m = core.build_model(CATALOG[FLAGSHIP])
+    d = flagship_reset()
+    st = _state_of({k: v[0] for k, v in d.items()})
+    out.update({f"flag_{k}": v[:1] for k, v in d.items()})
+    sub = np.asarray(_obs_fn(m)(_state_of({k: v[1] for k, v in d.items()}))
+                     ["full_positional_state"])
+    env = wrapper.PlayEnv(CATALOG[FLAGSHIP])
+    env.visualise_sub_goal(sub, "full_positional_state")
+    g, gb = env._sub_goal_ghosts()
+    out["flag_sub_goal"] = sub
+    out.update(_ghost_arrays("flag", g, gb))
+    frame = jax.jit(lambda s, g, gb: rnd.render_state(
+        m.cfg, m.tree, m.arm, m.scene, s, ghosts=g, ghost_boxes=gb))
+    out["flag_ghost"] = np.asarray(frame(st, g, gb))
+    env.delete_sub_goal()
+    out["flag_plain"] = np.asarray(frame(st, *env._sub_goal_ghosts()))
+
+    env = wrapper.PlayEnv(CATALOG["pandaPlayAbsRPY1Obj-v0"])
+    art = [0.1, 0.5, 0.02, 0.4]
+    for name, quat in (("unit", [0.2, 0.4, 0.6, 1.8]),
+                       ("zero", [0.0, 0.0, 0.0, 0.0])):
+        ag = np.array([0.05, 0.1, 0.0] + quat + art, np.float32)
+        env.visualise_sub_goal(ag, "achieved_goal")
+        out[f"pplay_{name}_ag"] = ag
+        out.update(_ghost_arrays(f"pplay_{name}", *env._sub_goal_ghosts()))
+
+    u8 = (out["pick_plain"] * 255).astype(np.uint8)
+    f32 = out["pick_plain"] * 1.3 - 0.1
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, img in (("u8", u8), ("f32", f32)):
+            path = os.path.join(tmp, name + ".png")
+            rnd.write_png(path, img)
+            with open(path, "rb") as f:
+                out[f"png_{name}"] = np.frombuffer(f.read(), np.uint8)
+            out[f"png_{name}_img"] = img
+
+    rs = np.random.RandomState(40)
+    thr = {"pos": 0.05, "drawer": 0.025, "door": 0.04, "button": 0.01,
+           "dial": 0.3}
+    for env_id, tag in ((FLAGSHIP, "bits_flag"), ("pandaPlay-v0",
+                                                  "bits_pplay")):
+        cfg = CATALOG[env_id]
+        n_obj = cfg.num_objects
+        ident = np.array([0, 0, 0, 1], np.float32)
+        ag = np.concatenate([np.concatenate([rs.uniform(-0.3, 0.3, 3),
+                                             ident]) for _ in range(n_obj)]
+                            + [rs.uniform(0, 0.5, 4)]).astype(np.float32)
+        ags = np.repeat(ag[None], 32, 0)
+        ags[:16] = 0.0                      # exact hits from zero
+        ags[:16, 3:7] = ident
+        goals = ags.copy()
+        k = 7 * n_obj
+        for i, (name, t) in enumerate(thr.items()):
+            t32 = np.float32(t)
+            up = np.nextafter(t32, np.float32(1))
+            col = [0, k, k + 1, k + 2, k + 3][i]
+            goals[2 * i, col] = t32         # hit exactly
+            goals[2 * i + 1, col] = -up     # missed by one step
+        for r, ang in ((10, 0.78), (11, 0.79)):        # pi/4 = 0.7854
+            goals[r, 3:7] = [0, 0, np.sin(ang / 2), np.cos(ang / 2)]
+        goals[16:] += rs.normal(0, 0.04, goals[16:].shape).astype(np.float32)
+        goals[16:, 3:7] *= 1.7                          # unnormalised
+        bits = met.play_element_bits(cfg, jnp.asarray(ags),
+                                     jnp.asarray(goals))
+        out[f"{tag}_ag"], out[f"{tag}_g"] = ags, goals
+        out.update({f"{tag}_{n}": np.asarray(b) for n, b in bits.items()})
+    _save("render_camera", **out)
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
+           "render_camera": make_render_camera,
            "ilqr": lambda: [job() for job in ILQR_JOBS.values()],
            f"step12_{_key(FLAGSHIP)}": make_step12, "rewards": make_rewards,
            "mpc_cost": make_mpc_cost, "mpc_init": make_mpc_init,
