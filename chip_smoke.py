@@ -75,7 +75,16 @@ iteration's time split into linearisation, Riccati and line search.
 Each model's graphed VJP (the plain twin's, replayed as a CUDA graph),
 at states other than the one it was captured at (10 x 52 UR5Reach envs,
 3 x 47 at the pinch), is held to the twin's plain autograd.
-Every phase prints its numbers and its time; any failure raises and the
+Then the full-fidelity sweep (tools/check_fused_torch.py): `[fidelity]`
+runs the sim and step kernels on each of the 19 ids' fixtures (64 envs, 16
+of them placed in contact, the config's 12 substeps, 8 warm-started
+iterations) against the JAX package's vmap oracle, every field under the
+tool's gates, and against the plain twin; one line per id and level with
+its worst field, every widened bound, each contact-row family's active
+rows. A field outside its gate at a gap of the reference that the tool
+records (RECORDED, ROADMAP Queue 3) is printed as failing and does not
+stop the script.
+Every phase prints its numbers and its time; any other failure raises and the
 script exits non-zero without a result line. The plain twin is
 host-bound (~10^5 small launches a control step, 7-11 s whatever the
 batch): the twin phase calls it eagerly once a kernel (its time is the
@@ -87,7 +96,7 @@ graphs and the eager autograd they are held to take another ~2 minutes.
 The last two lines are one JSON object per kernel ({"kernels": [...]};
 `launches` adds the counts of the main path's, the MPC path's, the
 multi-device paths', the env paths', the camera path's, the eval's, the
-LfP chain's and the gradient solvers' runs,
+LfP chain's, the gradient solvers' and the fidelity sweep's runs,
 `launches_by_path` splits them), then
 {"ok": true, "device": {...}}. There is no CPU mode: without a CUDA
 card the script exits with code 2.
@@ -110,18 +119,19 @@ if __name__ == "__main__" and not os.path.isdir(
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests"), os.path.join(ROOT, "tools")]
+from _torch_port import (  # noqa: E402
+    MAX_FLIPS, POS_MAX, POSITION_FIELDS, VEL_MAX, VEL_P99, VELOCITY_FIELDS,
+    env_error, field_diffs, free_graphs, judge_step, padded, plain_rollout,
+    plain_sim, plain_step, position_rows)
 FLAGSHIP = "UR5PlayAbsRPY1Obj-v0"
 SOURCE = "roboticsplayroompybullet_torch/csrc/fused_step.cu"
 # the pl.pallas_call site of each TPU kernel the CUDA entry points replace
 REPLACES = {"sim": "roboticsplayroompybullet_tpu/ops/fused_step.py:1271",
             "step": "roboticsplayroompybullet_tpu/ops/fused_step.py:1576",
             "rollout": "roboticsplayroompybullet_tpu/ops/fused_step.py:1706"}
-POSITION_FIELDS = ("q", "obj_pos", "obj_quat", "art_q")
-VELOCITY_FIELDS = ("qd", "obj_vel", "obj_angvel", "art_qd")
-POS_MAX = 1e-4                      # position-like fields: max |Δ|
-VEL_P99, VEL_MAX = 1e-3, 5e-2       # velocity fields: p99 and max |Δ|
 ROLLOUT_MAX = 0.05                  # rollout ags max (test_fused.py:206-211)
-MAX_FLIPS = 4                       # envs a step may leave the bounds above
 MAX_STACK = 1024                    # bytes of stack frame a kernel may use
 PEAK_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
 PEAK_FLOPS64 = 34e12                # and float64 (NVIDIA's H100 data sheet)
@@ -220,20 +230,6 @@ def build_phase():
     if bad:
         raise AssertionError(f"{bad}: stack frame over {MAX_STACK} bytes, "
                              "spills, or no ptxas report")
-
-
-def field_diffs(cfg, tree, A, B):
-    """{field: (max, p99)} of |A - B| over the packed rows."""
-    from roboticsplayroompybullet_torch.ops import fused_step as fs
-    rows, _ = fs._field_rows(cfg, tree)
-    out, i = {}, 0
-    d = (A - B).abs().cpu().numpy()
-    for name, r in rows:
-        if r:
-            x = d[i:i + r]
-            out[name] = (float(x.max()), float(np.quantile(x, 0.99)))
-        i += r
-    return out
 
 
 def check_fields(tag, diffs):
@@ -579,143 +575,6 @@ def main_path_phase(m, dev, states, acts):
     return launches, (fin, rew, ags)
 
 
-def position_rows(cfg, tree, dev):
-    """(NF,) bool: which packed rows hold a position-like field."""
-    from roboticsplayroompybullet_torch.ops import fused_step as fs
-    rows, _ = fs._field_rows(cfg, tree)
-    return torch.tensor([n in POSITION_FIELDS for n, r in rows
-                         for _ in range(r)], device=dev)
-
-
-def env_error(A, B, pos_rows):
-    """(B,) each env's largest |A - B| over its rows, each row over its
-    one-step bound (POS_MAX for positions, VEL_MAX for velocities): above 1
-    is outside the one-step bounds."""
-    lim = pos_rows.to(torch.float64) * (POS_MAX - VEL_MAX) + VEL_MAX
-    return ((A - B).abs() / lim[:, None]).amax(0)
-
-
-GRAPHS = {}     # (piece, input shapes and dtypes) -> its CUDA graph
-WARM = {}       # (piece, dtypes) whose constants the twin has cached
-
-
-def replay(cfg, piece, fn, *xs):
-    """fn(*xs) (tensors in, a list of tensors out) replayed from a CUDA
-    graph captured the first time cfg's `piece` meets these input shapes
-    and dtypes; returns copies of the outputs. One eager call a piece and
-    dtype first makes the constants the twin caches outside any capture.
-    The graphs hold cfg, so its id names it until free_graphs()."""
-    dtypes = tuple(x.dtype for x in xs)
-    piece = (id(cfg),) + piece
-    key = (piece, tuple(tuple(x.shape) for x in xs), dtypes)
-    if key not in GRAPHS:
-        static = [x.clone() for x in xs]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        if (piece, dtypes) not in WARM:
-            with torch.cuda.stream(side):
-                fn(*static)
-            WARM[piece, dtypes] = cfg
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(*static)
-        GRAPHS[key] = (static, graph, out, cfg)
-    static, graph, out, _ = GRAPHS[key]
-    for dst, x in zip(static, xs):
-        dst.copy_(x)
-    graph.replay()
-    return [o.clone() for o in out]
-
-
-def plain_sim(cfg, tree, arm, scene, n_substeps=None, solve_iters=8):
-    """fs.make_reference_sim's plain twin, replayed a substep at a time.
-
-    Eagerly the plain twin is host-bound (~10^5 small launches a control
-    step, 7-11 s on the card's host whatever the batch); replayed, the
-    same kernels on the same inputs run back to back, bit for bit
-    (twin_phase holds that). A capture costs about one eager call of its
-    piece, so the twin is captured a piece at a time, each reused at its
-    shape: the first substep (a zero warm start), a warm-started one
-    (make_lane_sim's loop), and the control (plain_step)."""
-    from roboticsplayroompybullet_torch.ops import fused_step as fs
-    sub = fs.make_lane_substep(cfg, tree, arm, scene, solve_iters=solve_iters)
-    n = cfg.substeps if n_substeps is None else n_substeps
-    tag = ("substep", solve_iters)
-
-    def substep(X, ctrl, grip, *lam):
-        lam0 = [lam[i:i + 3] for i in range(0, len(lam), 3)] or None
-        st, lam = sub(fs._lanes_from_block(cfg, tree, X), ctrl, grip, lam0)
-        return [fs._block_from_lanes(cfg, tree, st)] + [
-            t for trip in lam for t in trip]
-
-    def sim_B(X, ctrl, grip):
-        X, *lam = replay(cfg, tag + ("first",), substep, X, ctrl, grip)
-        for _ in range(n - 1):
-            X, *lam = replay(cfg, tag + ("warm",), substep, X, ctrl, grip,
-                             *lam)
-        return X
-
-    return sim_B
-
-
-def plain_step(cfg, tree, arm, scene, n_substeps=None, ik_iters=None,
-               solve_iters=8, with_ctrl=False):
-    """fs.make_reference_step's plain twin: its control replayed, then
-    plain_sim."""
-    from roboticsplayroompybullet_torch.ops import fused_step as fs
-    control = fs.make_lane_control(cfg, tree, arm, ik_iters=ik_iters)
-    sim = plain_sim(cfg, tree, arm, scene, n_substeps, solve_iters)
-
-    def ctl(X, actions):
-        return list(control(fs._lanes_from_block(cfg, tree, X)["q"],
-                            actions))
-
-    def step_B(X, actions):
-        ctrl, grip = replay(cfg, ("control", ik_iters), ctl, X, actions)
-        X2 = sim(X, ctrl, grip)
-        if with_ctrl:
-            return X2, torch.cat([ctrl, grip[None]], dim=0)
-        return X2
-
-    return step_B
-
-
-def plain_rollout(cfg, tree, arm, scene, horizon, n_substeps=None,
-                  ik_iters=None, solve_iters=8, with_ee=False):
-    """fs.make_reference_rollout's plain twin over plain_step."""
-    from roboticsplayroompybullet_torch.ops import fused_step as fs
-    step = plain_step(cfg, tree, arm, scene, n_substeps=n_substeps,
-                      ik_iters=ik_iters, solve_iters=solve_iters)
-    ag_of = fs.make_lane_ag(cfg, tree, arm, with_ee)
-
-    def roll_B(X, actions):
-        ags = []
-        for h in range(horizon):
-            X = step(X, actions[h])
-            ags.append(ag_of(X))
-        return X, torch.stack(ags)
-
-    return roll_B
-
-
-def padded(fn, *xs):
-    """fn(*xs) on envs (the last axis) padded to the next power of two, at
-    least 8, with copies of the first env, and cut back: the twin's envs
-    are independent columns, and few widths keep its graphs few."""
-    n = xs[0].shape[-1]
-    w = max(8, 1 << (n - 1).bit_length())
-    out = fn(*(torch.cat([x, x[..., :1].expand(*x.shape[:-1], w - n)], -1)
-               for x in xs))
-    return out[..., :n]
-
-
-def free_graphs():
-    GRAPHS.clear()
-    WARM.clear()
-    torch.cuda.empty_cache()
-
-
 @contextlib.contextmanager
 def plain_graphs():
     """While open, fs.make_reference_sim / _step / _rollout are plain_sim /
@@ -731,19 +590,6 @@ def plain_graphs():
     finally:
         (fs.make_reference_sim, fs.make_reference_step,
          fs.make_reference_rollout) = made
-
-
-def judge_step(cfg, tree, pos_rows, Xk, Yt):
-    """One teacher-forced step: the kernel's next state Xk against the plain
-    step Yt from the same state. Returns (per-field diffs, envs outside the
-    one-step bounds, worst position max, fields whose p99 is over its
-    one-step bound)."""
-    diffs = field_diffs(cfg, tree, Xk, Yt)
-    flips = int((env_error(Xk, Yt, pos_rows) > 1).sum())
-    pmax = max(v[0] for k, v in diffs.items() if k in POSITION_FIELDS)
-    over = [k for k, (_, p99) in diffs.items()
-            if p99 > (POS_MAX if k in POSITION_FIELDS else VEL_P99)]
-    return diffs, flips, pmax, over
 
 
 def horizon_twin_phase(m, dev, states, acts, kernel_out):
@@ -2978,13 +2824,76 @@ def ilqr_phase(dev):
     return total
 
 
+# the ids whose kernels [fidelity] also holds to the plain twin: JAX's
+# three default ids (both arms, one and two blocks), reach and pick. The
+# twin's graph captures take 3-9 s a model, ~115 s for all 19, which
+# tools/check_fused_torch.py --all runs.
+FIDELITY_TWIN = ("UR5PlayAbsRPY1Obj-v0", "pandaPlayAbsRPY1Obj-v0",
+                 "pandaPlay-v0", "UR5Reach-v0", "pandaPick-v0")
+
+
+def fidelity_phase(dev):
+    """tools/check_fused_torch.py over the 19 ids of the catalog: the fs_sim
+    and fs_step kernels on each fixture's 64 envs (16 in contact) against
+    the JAX package's vmap oracle at full fidelity, every field under the
+    tool's gates (JAX's own bounds, widened only where JAX's lane twin is
+    past them), and against the plain twin (plain_sim / plain_step,
+    replayed from CUDA graphs) on the ids of FIDELITY_TWIN; every
+    contact-row family of each model active in its fixture. One line per
+    id and level; the tables go to the --out JSON. A failure fails the
+    phase unless it is one of the tool's RECORDED gaps of the reference
+    (ROADMAP Queue 3), which are printed as failing. Returns the launch
+    counts of the kernels' runs."""
+    import check_fused_torch as cf
+    from roboticsplayroompybullet_torch.envs.config import CATALOG
+    counts = {"sim": 0, "step": 0, "rollout": 0}
+    tables, worst, bad = [], {}, []
+    for env_id in CATALOG:
+        r = cf.check_env(env_id, dev, (plain_sim, plain_step)
+                         if env_id in FIDELITY_TWIN else None,
+                         say=tables.append)
+        free_graphs()
+        for k, n in r["launches"].items():
+            counts[k] += n
+        for level, lv in r["levels"].items():
+            f, ratio = lv["worst"]
+            fails = [x for x in r["failed"] if x.startswith(level)]
+            new = [x for x in fails if x not in r["recorded"]]
+            twin_txt = (f"{lv['twin_flips']} envs outside the one-step "
+                        "bounds" if lv["twin_run"] else "not run")
+            verdict = ("ok" if not fails else "FAIL" if new else
+                       "FAIL, a recorded gap of the reference (ROADMAP "
+                       "Queue 3): " + "; ".join(fails))
+            say(f"[fidelity] {env_id} {level}: worst against the oracle "
+                f"{f} at {ratio:.3f} of its gate; plain twin {twin_txt}; "
+                f"{verdict}")
+        widened = [f"{w['level']} {w['field']} {w['stat']} -> "
+                   f"{w['limit']:.3e} (JAX's lane twin {w['jax']:.3e})"
+                   for w in r["widened"]]
+        if widened:
+            say(f"[fidelity] {env_id} widened: " + "; ".join(widened))
+        cover = ", ".join(f"{f} {a}/{n}" for f, (n, a) in
+                          r["coverage"].items())
+        say(f"[fidelity] {env_id} contact rows active/rows: {cover}")
+        worst[env_id] = {"level": r["worst"][0], "field": r["worst"][1],
+                         "ratio": r["worst"][2], "widened": r["widened"],
+                         "failed": r["failed"], "recorded": r["recorded"]}
+        new = [x for x in r["failed"] if x not in r["recorded"]]
+        if new:
+            bad.append((env_id, new))
+    record("fidelity", worst)
+    record("fidelity_tables", "\n".join(tables))
+    say(f"[fidelity] launches {counts}")
+    if bad:
+        raise AssertionError(f"[fidelity] outside the gates: {bad}")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args()
     smi = device_phase()
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests"),
-                    os.path.join(ROOT, "tools")]
     from roboticsplayroompybullet_torch.envs import core
     from roboticsplayroompybullet_torch.envs.config import CATALOG
 
@@ -3029,7 +2938,8 @@ def main():
                         ("env golden", env_golden_phase),
                         ("eval", eval_phase),
                         ("lfp", lfp_phase),
-                        ("ilqr", ilqr_phase)):
+                        ("ilqr", ilqr_phase),
+                        ("fidelity", fidelity_phase)):
         env_launches[name] = run(name, phase, dev)
     say(f"[phases] {sum(secs.values()):.1f} s in all: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()))

@@ -40,7 +40,7 @@ def test_every_module_imports_without_jax():
                    if f.endswith("_torch.py"))
     assert {"collect_play_torch", "train_lfp_torch", "eval_lfp_torch",
             "launch_distributed_torch", "scaling_torch", "interactive_torch",
-            "teleop_bridge_torch"} <= set(tools), tools
+            "teleop_bridge_torch", "check_fused_torch"} <= set(tools), tools
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -28,6 +28,10 @@ states (tests/golden/*.npz). The physics fixtures are B=128; the MPC ones
 writes the 19 lane replays of the goldens, 25 steps each (a few minutes for
 a UR5 id on a CPU, ~8 min for a Panda id on two cores; XLA's compile uses
 every core, so pin parallel processes to their own cores with taskset).
+The fidelity_* fixtures (tools/check_fused_torch.py, one an id: 4-12 min on
+two cores) also run JAX's vmap oracle, the only fixtures that do; the lane
+twin's gap figures in them reproduce to rounding across hosts and core
+counts, the oracle's outputs bit for bit.
 """
 from __future__ import annotations
 
@@ -91,6 +95,8 @@ SOURCES = sorted(
      "roboticsplayroompybullet_tpu/ops/kinematics.py",
      "roboticsplayroompybullet_tpu/envs/core.py",
      "roboticsplayroompybullet_tpu/envs/physics.py",
+     "roboticsplayroompybullet_tpu/envs/contact_solver.py",
+     "roboticsplayroompybullet_tpu/ops/contact.py",
      "roboticsplayroompybullet_tpu/utils/render.py",
      "roboticsplayroompybullet_tpu/envs/wrapper.py",
      "roboticsplayroompybullet_tpu/utils/metrics.py",
@@ -1578,6 +1584,341 @@ def make_render_camera():
     _save("render_camera", **out)
 
 
+# ---------------------------------------------------------------------------
+# the full-fidelity sweep (tools/check_fused_torch.py): the vmap oracle
+# ---------------------------------------------------------------------------
+
+FIDELITY_B = 64
+# the contact-row families, by the row kinds of the port's
+# cuda_build.row_table: block vs floor and statics, block vs block, block vs
+# an articulated element, pad vs block, pad vs floor and statics, pad vs an
+# articulated element
+FAMILIES = ("block_world", "block_block", "block_art", "pad_block",
+            "pad_world", "pad_art")
+CONTACT_ENVS = 16       # the last envs of a fixture, placed in contact
+PEN = 2e-3              # depth of a placed contact (m)
+
+
+def row_family(bd) -> str:
+    """The family of one of gather_bundles' bundles, by its body indices."""
+    if bd.a >= 0 and bd.b >= 0:
+        return "block_block"
+    if bd.k >= 0:
+        return "block_art" if bd.a >= 0 else "pad_art"
+    if bd.g >= 0:
+        return "pad_block" if bd.a >= 0 else "pad_world"
+    return "block_world"
+
+
+def contact_rows(m, d: dict) -> dict:
+    """{family: (rows, active rows)} of JAX's lane gather_bundles at the
+    positions of the states d (batch leading): a row is active where its
+    depth is positive, as lane_solve activates it."""
+    cfg, tree, arm, scene = m.cfg, m.tree, m.arm, m.scene
+    X = fs.pack_state(cfg, tree, _state_of(d))
+    st = fs._lanes_from_block(cfg, tree, X[:, None])
+    kin = fs.lane_fk_vel(tree, st["q"], st["qd"])
+    pads = fs.lane_pad_kinematics(tree, arm, kin)
+    bundles, _ = fs.gather_bundles(cfg, tree, arm, scene, st, kin, st["qd"],
+                                   *pads)
+    out = {}
+    for bd in bundles:
+        rows, act = out.get(row_family(bd), (0, 0))
+        dep = np.asarray(bd.depth)
+        out[row_family(bd)] = (rows + dep.size, act + int((dep > 0).sum()))
+    return out
+
+
+def _rot(q) -> np.ndarray:
+    """3x3 rotation matrix of a quaternion (x, y, z, w), in float64."""
+    x, y, z, w = np.asarray(q, np.float64) / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def _art_boxes(scene, k: int, art_q: float):
+    """(center, quat, half) of element k's real boxes at joint value art_q,
+    placed as physics.art_box_pose places the element's frame."""
+    from roboticsplayroompybullet_tpu.envs import physics
+    aq = jnp.zeros(4, jnp.float32).at[k].set(art_q)
+    pos, quat = (np.asarray(v, np.float64)
+                 for v in physics.art_box_pose(scene, k, aq))
+    return [(pos + _rot(quat) @ np.asarray(scene.art_boxes_pos[k, b]),
+             quat, np.asarray(scene.art_boxes_half[k, b], np.float64))
+            for b in fs._real_boxes(scene, k)]
+
+
+def _top(center, quat, half) -> float:
+    """World z of a box's highest point."""
+    return float(center[2] + np.abs(_rot(quat)[2]) @ half)
+
+
+def _pad0(m, q):
+    """(pad 0's center, the end effector's position and quat) at q (n, N)."""
+    tree, arm = m.tree, m.arm
+    kin = fs.lane_fk_vel(tree, q, jnp.zeros_like(q))
+    pad0 = fs.lane_pad_kinematics(tree, arm, kin)[0][0]
+    pos_l, quat_l = fs.lane_fk_links(tree, q)
+    ee, eq = fs._lane_site_pose(tree, pos_l, quat_l, arm.ee_site)
+    return pad0, ee, eq
+
+
+def _pad_ik(m, q, targets):
+    """q (n, N) with pad 0's center moved to targets (3, N): JAX's lane DLS
+    IK moves the end effector by pad 0's remaining miss, its orientation
+    held, a few rounds."""
+    iters = 16 if m.arm.name == "Panda" else 24
+    q = jnp.asarray(q)
+    _, _, quat = _pad0(m, q)
+    for _ in range(4):
+        pad0, ee, _ = _pad0(m, q)
+        q = fs.lane_ik_dls(m.tree, m.arm, q, ee + (targets - pad0), quat,
+                           iters)
+    return np.asarray(q)
+
+
+def place_contacts(m, d: dict, seed: int) -> dict:
+    """The last CONTACT_ENVS envs of d moved into contact, one placement
+    each, in turn over what the model has: a block under pad 0 (pad vs
+    block; pad 0 presses on the block from above, the gripper does not
+    hold it), a block in each articulated element wide enough to hold it
+    (block vs element), pad 0 on each element's highest box (pad vs
+    element), and pad 0 on the table, or on the floor where the scene has
+    no table (pad vs world). The start states leave the pad and element
+    families with no active row (the arm rests above the scene), so without
+    these placements their rows would be compared while idle. Velocities,
+    servo-target offsets and gripper commands stay as drawn."""
+    cfg, tree, arm, scene = m.cfg, m.tree, m.arm, m.scene
+    rs = np.random.RandomState(seed)
+    d = {k: np.array(v) for k, v in d.items()}
+    B, na, no = d["q"].shape[0], arm.n_arm, cfg.num_objects
+    hb = np.asarray(scene.block_half, np.float64)
+    arts = [k for k in range(4)
+            if scene.has_articulated and fs._real_boxes(scene, k)]
+    plan = [("pad_block", o) for o in range(no)]
+    plan += [("block_art", k) for k in arts
+             if any((h[:2] > hb[:2]).all() for _, _, h in
+                    _art_boxes(scene, k, 0.0))]
+    plan += [("pad_art", k) for k in arts] + [("pad_world", -1)]
+    envs = range(B - CONTACT_ENVS, B)
+    ik_envs, ik_targets, block_envs, block_objs = [], [], [], []
+    for i, env in enumerate(envs):
+        kind, idx = plan[i % len(plan)]
+        if kind == "block_art":
+            # yaw 0, the block's tilt kept: its footprint inside the box's
+            art_q = float(d["art_q"][env, idx])
+            boxes = [b for b in _art_boxes(scene, idx, art_q)
+                     if (b[2][:2] > hb[:2]).all()]
+            c, bq, h = max(boxes, key=lambda b: _top(*b))
+            qt = d["obj_quat"][env, 0].astype(np.float64)
+            qt[2:] = [0.0, 1.0]
+            qt /= np.linalg.norm(qt)
+            top = _top(c, bq, h)
+            d["obj_quat"][env, 0] = qt
+            d["obj_pos"][env, 0] = [c[0], c[1],
+                                    top - PEN + (_top(np.zeros(3), qt, hb))]
+        elif kind == "pad_block":
+            block_envs.append(env)
+            block_objs.append(idx)
+        else:
+            ik_envs.append(env)
+            ik_targets.append((kind, idx))
+    r0 = float(arm.pad_spheres[0][2])
+    if ik_envs:
+        aims = np.zeros((len(ik_envs), 3))
+        pad0 = np.asarray(_pad0(m, jnp.asarray(d["q"][ik_envs].T))[0]).T
+        for j, (env, (kind, idx)) in enumerate(zip(ik_envs, ik_targets)):
+            if kind == "pad_art":
+                c, bq, h = max(_art_boxes(scene, idx, float(
+                    d["art_q"][env, idx])), key=lambda b: _top(*b))
+                aims[j] = [c[0], c[1], _top(c, bq, h) + r0 - PEN]
+            elif scene.static_pos.shape[0] and cfg.play:
+                c = np.asarray(scene.static_pos[0])
+                h = np.asarray(scene.static_half[0])
+                xy = c[:2] + rs.uniform(-0.5, 0.5, 2) * h[:2]
+                aims[j] = [xy[0], xy[1], c[2] + h[2] + r0 - PEN]
+            else:
+                aims[j] = [pad0[j, 0], pad0[j, 1],
+                           float(scene.plane_z) + r0 - PEN]
+        q = _pad_ik(m, d["q"][ik_envs].T,
+                    jnp.asarray(aims.T.astype(np.float32))).T
+        off = d["ctrl_q"][ik_envs] - d["q"][ik_envs, :na]
+        d["q"][ik_envs] = q
+        d["ctrl_q"][ik_envs] = q[:, :na] + off
+    if block_envs:
+        # the block comes to pad 0 from below, centred under it: its
+        # highest point PEN above the pad's lowest point
+        pad0 = np.asarray(_pad0(m, jnp.asarray(d["q"][block_envs].T))[0]).T
+        for j, (env, o) in enumerate(zip(block_envs, block_objs)):
+            qt = d["obj_quat"][env, o].astype(np.float64)
+            p = pad0[j]
+            d["obj_pos"][env, o] = [p[0], p[1], p[2] - r0 + PEN
+                                    - _top(np.zeros(3), qt, hb)]
+    for k in ("q", "ctrl_q", "obj_pos", "obj_quat"):
+        d[k] = d[k].astype(np.float32)
+    return d
+
+
+def fidelity_inputs(env_id: str):
+    """(the model, FIDELITY_B start states (start_states, the contacts
+    placed) with their own servo targets and gripper commands, actions
+    (A, B) uniform(-0.3, 0.3) as tests/test_fused.py::
+    test_fused_full_step_matches draws them)."""
+    m = core.build_model(CATALOG[env_id])
+    d = {k: v[:FIDELITY_B] for k, v in start_states(env_id, seed=21).items()}
+    d = place_contacts(m, d, seed=22)
+    rs = np.random.RandomState(23)
+    acts = rs.uniform(-0.3, 0.3, (m.cfg.action_dim, FIDELITY_B)
+                      ).astype(np.float32)
+    return m, d, acts
+
+
+def _gap(a, b) -> np.ndarray:
+    """[max, mean, p99, p99.9] of |a - b|."""
+    x = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).ravel()
+    return np.array([x.max(), x.mean(), np.quantile(x, 0.99),
+                     np.quantile(x, 0.999)])
+
+
+def oracle_runs(m, d: dict, acts):
+    """The vmap oracle on the states d (batch leading): (run_simulation from
+    their servo targets and grip, step_physics_only on acts (A, B)), each as
+    (packed X (NF, B), servo targets (n_arm, B), grip (B,))."""
+    from roboticsplayroompybullet_tpu.envs import physics
+    cfg, tree, arm, scene = m.cfg, m.tree, m.arm, m.scene
+    st = _state_of(d)
+    out = []
+    for o in (jax.jit(jax.vmap(lambda s: physics.run_simulation(
+                  cfg, tree, arm, scene, s)))(st),
+              jax.jit(jax.vmap(lambda s, a: core.step_physics_only(m, s, a)))(
+                  st, jnp.asarray(acts.T))):
+        out.append((np.asarray(fs.pack_state(cfg, tree, o)),
+                    np.asarray(o.ctrl_q).T, np.asarray(o.grip)))
+    return out
+
+
+def _level_fields(cfg, tree, X, ctrl=None, grip=None) -> dict:
+    """{field: rows} of packed (NF, ...) rows, plus the step's servo targets
+    and grip where given."""
+    rows, _ = fs._field_rows(cfg, tree)
+    out, i = {}, 0
+    for name, r in rows:
+        if r:
+            out[name] = X[i:i + r]
+        i += r
+    if ctrl is not None:
+        out["targets"], out["grip"] = ctrl, grip[None]
+    return out
+
+
+ULP_DRAWS = 8           # copies of each env's inputs moved by one ulp
+
+
+def ulp_spread(m, d: dict, acts) -> dict:
+    """The oracle's own rounding spread at the inputs: each env run again
+    ULP_DRAWS times with every float input (state, servo targets, grip,
+    actions) moved one ulp up or down at random, in one batch with the
+    unmoved env; per level and field, [max, mean, p99, p99.9] over the
+    elements of the largest |moved - unmoved| of each."""
+    K = ULP_DRAWS + 1
+    rs = np.random.RandomState(24)
+
+    def moved(v):
+        v = np.repeat(v, K, 0)
+        if v.dtype != np.float32:
+            return v
+        w = np.nextafter(v, np.where(rs.rand(*v.shape) < 0.5, -np.inf,
+                                     np.inf).astype(np.float32))
+        w[::K] = v[::K]
+        return w
+
+    dk = {k: moved(v) for k, v in d.items()}
+    ak = moved(acts.T).T
+    out = {}
+    for level, (X, c, g) in zip(("sim", "step"), oracle_runs(m, dk, ak)):
+        c, g = (c, g) if level == "step" else (None, None)
+        for f, v in _level_fields(m.cfg, m.tree, X, c, g).items():
+            v = v.reshape(v.shape[0], -1, K)
+            out[f"ulp_{level}_{f}"] = _gap(
+                np.abs(v - v[..., :1]).max(-1), 0.0)
+    return out
+
+
+def make_fidelity(env_id: str):
+    """tools/check_fused.py's sweep on one id, at full fidelity (the
+    config's 12 substeps, 8 warm-started iterations) on FIDELITY_B envs:
+    the vmap oracle's run_simulation from the states' servo targets and
+    grip, and its step_physics_only on the actions (with the servo targets
+    and grip it sets), stored whole; JAX's lane twin (make_lane_sim /
+    make_lane_control, the body of make_reference_sim / _step, on one row
+    of FIDELITY_B lanes) on the same inputs, stored as its gap to the oracle
+    per field, [max, mean, p99, p99.9]; the oracle's own spread under a
+    one-ulp change of its inputs (ulp_spread) in the same four figures;
+    and each contact-row family's rows and active rows at the inputs."""
+    t0 = time.time()
+    m, d, acts = fidelity_inputs(env_id)
+    cfg, tree, arm, scene = m.cfg, m.tree, m.arm, m.scene
+    X = np.asarray(fs.pack_state(cfg, tree, _state_of(d)))
+    ctrl, grip = d["ctrl_q"].T.copy(), d["grip"].copy()
+    cover = contact_rows(m, d)
+    print(f"{env_id} inputs {time.time() - t0:.1f} s, contact rows "
+          f"(rows, active) {cover}", flush=True)
+
+    t0 = time.time()
+    (sim_X, _, _), (step_X, step_ctrl, step_grip) = oracle_runs(m, d, acts)
+    print(f"{env_id} oracle {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    spread = ulp_spread(m, d, acts)
+    print(f"{env_id} oracle one-ulp spread {time.time() - t0:.1f} s",
+          flush=True)
+
+    lane_sim = fs.make_lane_sim(cfg, tree, arm, scene, None, solve_iters=8)
+    control = fs.make_lane_control(cfg, tree, arm)
+
+    def sim3(X3, c3, g3):
+        lanes = fs._lanes_from_block(cfg, tree, X3)
+        return fs._block_from_lanes(cfg, tree, lane_sim(lanes, c3, g3))
+
+    def step3(X3, A3):
+        lanes = fs._lanes_from_block(cfg, tree, X3)
+        c3, g3 = control(lanes["q"], A3)
+        return (fs._block_from_lanes(cfg, tree, lane_sim(lanes, c3, g3)),
+                c3, g3)
+
+    t0 = time.time()
+    lsim = np.asarray(jax.jit(sim3)(jnp.asarray(X[:, None]),
+                                    jnp.asarray(ctrl[:, None]),
+                                    jnp.asarray(grip[None])))[:, 0]
+    print(f"{env_id} lane sim {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    lstep, lctrl, lgrip = (np.asarray(v)[..., 0, :] for v in jax.jit(step3)(
+        jnp.asarray(X[:, None]), jnp.asarray(acts[:, None])))
+    print(f"{env_id} lane step {time.time() - t0:.1f} s", flush=True)
+
+    gaps = {}
+    for level, got, want in (
+            ("sim", _level_fields(cfg, tree, lsim),
+             _level_fields(cfg, tree, sim_X)),
+            ("step", _level_fields(cfg, tree, lstep, lctrl, lgrip),
+             _level_fields(cfg, tree, step_X, step_ctrl, step_grip))):
+        for f in got:
+            gaps[f"jax_{level}_{f}"] = _gap(got[f], want[f])
+    for k, v in dict(gaps, **spread).items():
+        print(f"{env_id} {k}: max {v[0]:.3e} mean {v[1]:.3e} p99 "
+              f"{v[2]:.3e} p99.9 {v[3]:.3e}", flush=True)
+    fams = [f for f in FAMILIES if f in cover]
+    _save(f"fidelity_{_key(env_id)}", env_id=np.array(env_id), X=X,
+          ctrl=ctrl, grip=grip, actions=acts, sim_X=sim_X, step_X=step_X,
+          step_ctrl=step_ctrl, step_grip=step_grip,
+          families=np.array(fams),
+          rows=np.array([cover[f][0] for f in fams], np.int64),
+          active=np.array([cover[f][1] for f in fams], np.int64),
+          n_substeps=np.int32(cfg.substeps), solve_iters=np.int32(8),
+          **gaps, **spread)
+
+
 def jobs() -> dict:
     out = {f"reset_{_key(FLAGSHIP)}": flagship_reset,
            "render_camera": make_render_camera,
@@ -1599,6 +1940,8 @@ def jobs() -> dict:
         out[f"golden_lane_{_key(e)}"] = (lambda e=e: make_golden_lane(e))
     for e in SETTLE_ENVS:
         out[f"settle_{_key(e)}"] = (lambda e=e: make_settle(e))
+    for e in CATALOG:
+        out[f"fidelity_{_key(e)}"] = (lambda e=e: make_fidelity(e))
     for e in SIM3_ENVS:
         out[f"sim3_{_key(e)}"] = (lambda e=e: make_sim3(e))
     for e in CONTROL_ENVS:
